@@ -18,8 +18,13 @@ goes wrong:
    batch of 16 (192 tokens, 400 frames × 513 bins).  Every kernel must have
    been launched; MAS's path must equal the plain version's on the same
    scores.
-4. kernel timing at the shapes the main path gave each kernel, beside the
-   least time the card could take for the same work.
+4. kernel timing at the shapes the main path gave each kernel: one call's
+   time as its caller sees it (CUDA events around the wrapper, its host
+   work in: ``ms`` of the kernels line) and the card's time alone (the call
+   queued behind a spin, so the host's work is off the clock:
+   ``device_ms``), beside the least time the card could take for the same
+   work and, for MAS, an estimate of the floor its chain of dependent rows
+   sets.
 5. the card against the CPU: one short request's stages on both devices
    with the same weights and injected noise, each output held to a bound
    relative to its own size.
@@ -50,6 +55,10 @@ CONFIG = REPO / "configs" / "finetune_speaker.json"
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and fp32 (non-tensor) op/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# latencies, in SM cycles, of one dependent fp32 add + max and of one
+# dependent shared-memory load on Hopper (estimates, for MAS's chain floor)
+ADD_MAX_CYCLES = 8
+SHARED_LOAD_CYCLES = 30
 
 SERVE_TEXTS = [
     ("Hello, this is the port speaking on the card.", "English"),
@@ -84,14 +93,22 @@ def phase(name: str) -> None:
     log(f"---- {name}")
 
 
-def cuda_time_ms(fn, warmup: int = 3, iters: int = 20) -> float:
-    """Median over ``iters`` launches of ``fn``, each timed by CUDA events."""
+def cuda_time_ms(fn, warmup: int = 3, iters: int = 20,
+                 hold_cycles: int = 0) -> float:
+    """Median over ``iters`` calls of ``fn``, each timed by CUDA events.
+
+    With ``hold_cycles`` the stream first spins that many cycles on the
+    card, so the host has queued the call before its start event runs: the
+    time is then the card's alone, without the host's overhead of the call.
+    """
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(iters):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if hold_cycles:
+            torch.cuda._sleep(hold_cycles)
         start.record()
         fn()
         end.record()
@@ -123,6 +140,22 @@ def mas_cases():
                      np.array([9, 6], np.int32), np.array([25, 17], np.int32))
     cases["wide-t_x-1500"] = random_case(5, 2, 1600, 1500)
     cases["full-16x400x192"] = random_case(0, FWD_B, FWD_FRAMES, FWD_TEXT)
+    # edges of the kernel's design: 32-column decision words, 7 to 9 word
+    # groups (T_x 224, 256, 257); at T_x=24 a ring of 64 score rows in
+    # halves of 32 and backtrack chunks of 64 rows; lengths 1 and 0; more
+    # blocks than SMs; text_len past spec_len, where the forward computes
+    # whole rows
+    for t_x in (31, 32, 33, 64, 65, 224, 256, 257):
+        cases[f"t_x-{t_x}"] = random_case(6, 3, max(100, t_x + 20), t_x)
+    for t_y in (33, 65):
+        cases[f"t_y-{t_y}"] = random_case(7, 3, t_y, 24)
+    cases["length-1"] = (rng.normal(size=(4, 20, 10)).astype(np.float32),
+                         np.array([1, 1, 5, 0], np.int32),
+                         np.array([1, 7, 1, 0], np.int32))
+    cases["batch-200"] = random_case(8, 200, 60, 20)
+    cases["text-past-spec"] = (rng.normal(size=(3, 30, 40)).astype(np.float32),
+                               np.array([25, 40, 12], np.int32),
+                               np.array([10, 30, 12], np.int32))
     return cases
 
 
@@ -404,8 +437,11 @@ def main() -> int:
 
     phase("2 kernels: build and hold against the plain versions")
     t0 = time.perf_counter()
-    mas.build_library(verbose=True)
+    mas.build_library(verbose=True)  # prints ptxas's report
     log(f"build: csrc/mas.cu in {time.perf_counter() - t0:.2f} s")
+    for t_x in (FWD_TEXT, 1500):
+        log(f"mas dynamic shared memory per block at T_x={t_x}: "
+            f"{mas.shared_bytes(t_x)} B")
     mas_err = check_mas_kernel(mas)
 
     phase("3 main path at full width")
@@ -442,7 +478,13 @@ def main() -> int:
     _, x_len, _, y_len, _ = fwd_in
 
     phase("4 kernel timing at the main path's shapes")
-    mas_ms = cuda_time_ms(lambda: mas.maximum_path_cuda(neg_cent, x_len, y_len))
+    # one call's time as the caller sees it, the wrapper's host work in, and
+    # the kernel's device time, with the call queued behind ~1 ms of spin
+    mas_ms = cuda_time_ms(
+        lambda: mas.maximum_path_cuda(neg_cent, x_len, y_len))
+    mas_device_ms = cuda_time_ms(
+        lambda: mas.maximum_path_cuda(neg_cent, x_len, y_len),
+        hold_cycles=2_000_000)
     mas_plain_ms = cuda_time_ms(
         lambda: mas.maximum_path_plain(neg_cent, x_len, y_len), iters=5)
     b, t_y, t_x = neg_cent.shape
@@ -455,11 +497,24 @@ def main() -> int:
     bound_ms = max(mas_bytes / HBM_BYTES_PER_S, mas_ops / FP32_OPS_PER_S) * 1e3
     mas_bound_by = ("bytes" if mas_bytes / HBM_BYTES_PER_S
                     >= mas_ops / FP32_OPS_PER_S else "operations")
-    log(f"mas [{b}, {t_y}, {t_x}]: kernel {mas_ms:.4f} ms, plain "
-        f"{mas_plain_ms:.4f} ms, bound {bound_ms:.6f} ms by {mas_bound_by} "
-        f"({cells} of {b * t_y * t_x} score cells needed, {mas_bytes} B); "
-        f"the real limit is the {t_y}-deep chain of dependent rows in each "
-        f"block")
+    log(f"mas [{b}, {t_y}, {t_x}]: {mas_ms:.4f} ms per call with the "
+        f"wrapper's host work, kernel {mas_device_ms:.4f} ms on the card, "
+        f"plain {mas_plain_ms:.4f} ms, bound {bound_ms:.6f} ms by {mas_bound_by} "
+        f"({cells} of {b * t_y * t_x} score cells needed, {mas_bytes} B)")
+    # the chain no design can shorten: the longest utterance's rows, each an
+    # add + max on the row before, then as many dependent shared-memory
+    # reads in the backtrack
+    rows = int(y_len.max().item())
+    sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    ).stdout.split()[0])
+    chain_ms = rows * (ADD_MAX_CYCLES + SHARED_LOAD_CYCLES) / (sm_mhz * 1e3)
+    log(f"mas chain floor (estimate): {rows} rows x ({ADD_MAX_CYCLES} cycles "
+        f"add+max + {SHARED_LOAD_CYCLES} cycles shared load) at "
+        f"{sm_mhz:.0f} MHz = {chain_ms:.6f} ms; kernel on the card at "
+        f"{mas_device_ms / chain_ms:.1f}x that floor")
 
     phase("5 card against CPU")
     cpu_engine = TTSEngine(
@@ -480,6 +535,7 @@ def main() -> int:
         "launches": launches["mas"],
         "max_abs_err": mas_err,
         "ms": mas_ms,
+        "device_ms": mas_device_ms,
         "plain_ms": mas_plain_ms,
         "bound_ms": bound_ms,
         "bound_by": mas_bound_by,

@@ -13,12 +13,18 @@ Index conventions follow the JAX package: ``neg_cent`` is
 ``path[b, y, x] = 1`` iff spec frame ``y`` is aligned to text token ``x``.
 
 The kernel's bound on an H100: it writes the path whole, ``4·B·T_y·T_x``
-bytes, and reads at most as many bytes of ``neg_cent`` (``8·B·T_y·T_x`` in
-all: 9.8 MB, ~2.9 µs at 3.35 TB/s for B=16, T_y=400, T_x=192).  The path
-depends only on a band of score cells set by the lengths, so the bound
-``chip_smoke.py`` reports counts that band for its own inputs.  The real
-limiter is the T_y-deep chain of dependent rows in each block; see the
-design note at the top of ``csrc/mas.cu``.
+bytes, and reads the band of ``neg_cent`` the path depends on, which
+``chip_smoke.py`` counts for its own inputs (~2 µs at 3.35 TB/s for B=16,
+T_y=400, T_x=192).  The real limiter is the T_y-deep chain of dependent rows
+in each block, then the T_y-step backtrack.  The kernel runs one block of
+128 threads per utterance: warp 0 walks the rows with the two value rows in
+shared memory and one ``__syncwarp()`` per row, a ring of score rows in
+flight with ``cp.async``, and one 32-bit word of packed decisions per
+(row, 32 columns) in an int32 ``[B, T_y, ceil(T_x/32)]`` scratch; warps 1–3
+zero the path meanwhile; lane 0 then follows the decisions back from shared
+memory.  Its shared memory grows with T_x only (:func:`shared_bytes`); a
+T_x past the block's 227 KB (5,728 columns) raises.  The design note
+at the top of ``csrc/mas.cu`` has the details.
 """
 
 from __future__ import annotations
@@ -38,9 +44,11 @@ _NEG = -1e9
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCE = _CSRC / "mas.cu"
 BUILD_DIR = _CSRC / "build"
+# -Xptxas -v: ptxas's register, spill and shared-memory report, kept beside
+# the library (:func:`build_library`)
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 # shared memory one block may use on Hopper (227 KB)
 _MAX_SHARED_BYTES = 232_448
@@ -116,24 +124,26 @@ def library_path() -> Path:
 
 
 def build_library(verbose: bool = False) -> Path:
-    """Compile ``csrc/mas.cu`` with ``nvcc`` unless this source's build is
-    already there.  ``verbose`` adds ptxas's register and shared-memory
-    report and prints the compiler's output."""
+    """Compile ``csrc/mas.cu`` with ``nvcc`` unless this build is already
+    there.  The compiler's output, ptxas's report among it, is kept beside
+    the library as ``.log``; ``verbose`` prints it."""
     lib = library_path()
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
+    report = lib.with_suffix(".log")
+    if not lib.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+            capture_output=True, text=True,
         )
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
+            )
+        report.write_text(proc.stdout + proc.stderr)
+        os.replace(tmp, lib)
     if verbose:
-        print(proc.stdout + proc.stderr, end="")
-    os.replace(tmp, lib)
+        print(report.read_text(), end="")
     return lib
 
 
@@ -148,12 +158,18 @@ def _library() -> ctypes.CDLL:
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
             ]
             lib.mas_launch.restype = ctypes.c_int
-            lib.mas_shared_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+            lib.mas_shared_bytes.argtypes = [ctypes.c_int]
             lib.mas_shared_bytes.restype = ctypes.c_size_t
             lib.mas_error_string.argtypes = [ctypes.c_int]
             lib.mas_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
+
+
+def shared_bytes(t_x: int) -> int:
+    """Shared memory one block of the kernel takes at this T_x, as
+    ``csrc/mas.cu`` sizes it (``mas_shared_bytes``)."""
+    return _library().mas_shared_bytes(t_x)
 
 
 def maximum_path_cuda(
@@ -186,15 +202,17 @@ def maximum_path_cuda(
                 f"{name} must be contiguous int32 [{b}] on {neg_cent.device}, "
                 f"got {t.dtype} {tuple(t.shape)} on {t.device}"
             )
-    lib = _library()
-    smem = lib.mas_shared_bytes(t_y, t_x)
+    smem = shared_bytes(t_x)
     if smem > _MAX_SHARED_BYTES:
         raise ValueError(
-            f"T_y={t_y}, T_x={t_x} needs {smem} bytes of shared memory; a "
-            f"Hopper block has {_MAX_SHARED_BYTES}"
+            f"T_x={t_x} needs {smem} bytes of shared memory; a Hopper block "
+            f"has {_MAX_SHARED_BYTES}"
         )
+    lib = _library()
     path = torch.empty_like(neg_cent)
-    dec = torch.empty((b, t_y, t_x), dtype=torch.uint8, device=neg_cent.device)
+    # decision bits, one int32 word per (row, 32 columns)
+    dec = torch.empty((b, t_y, (t_x + 31) // 32), dtype=torch.int32,
+                      device=neg_cent.device)
     with torch.cuda.device(neg_cent.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.mas_launch(

@@ -47,11 +47,34 @@ def _case(name):
         return _random_case(5, 2, 1600, 1500)
     if name == "full-16x400x192":  # the aligning forward's geometry
         return _random_case(0, 16, 400, 192)
+    if name.startswith("t_x-"):
+        # edges of the 32-column decision words; 7 and 8 word groups, the
+        # widest rows without passes, and 9, the narrowest with them
+        t_x = int(name[4:])
+        return _random_case(6, 3, max(100, t_x + 20), t_x)
+    if name.startswith("t_y-"):
+        # at T_x=24 the kernel keeps a ring of 64 score rows in halves of
+        # 32 and walks the decisions back in chunks of 64 rows: T_y=33 and
+        # 65 cross each edge
+        return _random_case(7, 3, int(name[4:]), 24)
+    if name == "length-1":  # spec_len 1, text_len 1, and both 0
+        return (rng.normal(size=(4, 20, 10)).astype(np.float32),
+                np.array([1, 1, 5, 0], np.int32),
+                np.array([1, 7, 1, 0], np.int32))
+    if name == "batch-200":  # more blocks than the card has SMs
+        return _random_case(8, 200, 60, 20)
+    if name == "text-past-spec":  # text_len > spec_len: no band to keep to
+        return (rng.normal(size=(3, 30, 40)).astype(np.float32),
+                np.array([25, 40, 12], np.int32),
+                np.array([10, 30, 12], np.int32))
     raise ValueError(name)
 
 
 CASES = [f"random-{s}" for s in range(5)] + [
     "t_x_1", "t_y_eq_t_x", "padded", "ties", "wide-t_x-1500", "full-16x400x192",
+    "t_x-31", "t_x-32", "t_x-33", "t_x-64", "t_x-65", "t_x-224", "t_x-256",
+    "t_x-257", "t_y-33", "t_y-65",
+    "length-1", "batch-200", "text-past-spec",
 ]
 
 
@@ -88,6 +111,10 @@ def test_kernel_wrapper_raises_on_what_it_cannot_take(cuda_device):
                               tl, sl)
     with pytest.raises(ValueError, match="int32"):
         mas.maximum_path_cuda(neg, tl.long(), sl)
+    with pytest.raises(ValueError, match="int32"):
+        mas.maximum_path_cuda(neg, tl.cpu(), sl)
+    # shared memory grows with T_x only: at T_x=20000 the ring of 4 score
+    # rows and the two value rows alone need 480 KB of the block's 227 KB
     with pytest.raises(ValueError, match="shared memory"):
-        mas.maximum_path_cuda(torch.zeros(1, 60000, 4, device=cuda_device),
+        mas.maximum_path_cuda(torch.zeros(1, 2, 20000, device=cuda_device),
                               tl[:1], sl[:1])
