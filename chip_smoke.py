@@ -32,17 +32,39 @@ goes wrong:
    fixed noise seed, the median host latency of several runs, and one
    ``torch.profiler`` run of each for the device's busy time, its idle
    share and the kernels launched.
+7. the training path, in fp32 (TF32 off), every launch counter set to 0
+   first: a synthetic set of 32 clips (3.5–4.6 s at 22.05 kHz, texts for
+   the 192-token bucket, speakers among the 999) is written with the
+   port's ``save_wav``, and ``Trainer`` runs ``configs/finetune_speaker.json``
+   at full width on it (B=16, 400 frames, segment 8192, random weights):
+   ``fit`` for one epoch (2 steps), then 2 warm-up and 8 timed
+   ``train_step`` calls and one profiled.  Losses must be finite, every
+   parameter tensor must change, MAS must run once per step on the card,
+   and each step's path must equal the plain MAS on that step's scores.
+   Printed: median step time, audio seconds trained per wall second, peak
+   device memory, the profiled step's busy time, idle share, events and
+   top kernels.
+8. the training outputs: ``save`` → a fresh ``Trainer`` resumes with the
+   same weights and AdamW moments; ``G_latest.pth`` loads strictly into
+   ``TTSEngine``, which answers a request.
+9. phase 7 again as the config says (``bf16_run``: autocast bf16).
+10. one training step at full width, B=2, 64 frames, on the card and on
+    the CPU with the same weights and draws: loss terms and gradients
+    held to bounds relative to their own size.
 
-The last lines are a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi``
-name/power-limit line, and ``{"ok": true, "device": {...}}``.
+The last lines are a line of MAS launches per path, a ``{"kernels": [...]}``
+JSON line, the ``nvidia-smi`` name/power-limit line, and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -344,20 +366,98 @@ def _union_ms(intervals_us) -> float:
     return busy / 1e3
 
 
+# device time by kind of kernel, from the kernel's name: convolution
+# forward, its input gradient (also a transposed convolution's forward), its
+# weight gradient, matrix products, copies, then elementwise and reductions
+KERNEL_KINDS = (
+    ("conv dgrad", ("dgrad",)),
+    ("conv wgrad", ("wgrad",)),
+    ("conv fprop", ("fprop", "conv", "implicit_gemm", "winograd", "fft")),
+    ("gemm", ("gemm", "gemv", "cutlass", "sm90_xmma")),
+    ("copy", ("Memcpy", "Memset", "copy")),
+    ("reduce", ("reduce", "norm", "sum")),
+    ("elementwise", ("elementwise", "vectorized", "foreach")),
+)
+# ranges the profiler also lays on the card's timeline: they span kernels
+# and are not kernels themselves
+RANGE_PREFIXES = ("Optimizer.", "ProfilerStep", "train/")
+
+
+def profile_once(run, top_n: int = 3, ranges: str = "") -> dict:
+    """One ``torch.profiler`` run of ``run``: the device's busy time (the
+    union of its kernel and copy intervals), the profiled wall time, the
+    device events, the ``top_n`` kernels with the most device time, and the
+    device time by kind of kernel (``KERNEL_KINDS``).
+
+    With ``ranges`` (a prefix of ``record_function`` names, as the train
+    step's ``train/``), also each range's host time and the device time of
+    the kernels inside its span on the card; a kernel outside every span
+    (the autograd engine launches the backward from its own thread) counts
+    for the range that ended last before it, as ``<name> (after)``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    on_card = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev = [e for e in on_card
+           if not getattr(e, "is_user_annotation", False)
+           and not e.name.startswith(RANGE_PREFIXES)]
+    busy_ms = _union_ms((e.time_range.start, e.time_range.end) for e in dev)
+    by_name = {}
+    for e in dev:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:top_n]
+    by_kind = {}
+    for name, ms in by_name.items():
+        kind = next((k for k, keys in KERNEL_KINDS if any(w in name for w in keys)),
+                    "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + ms
+    out = {"device_busy_ms": busy_ms, "profiled_wall_ms": wall_ms,
+           "idle_share_profiled": 1.0 - busy_ms / wall_ms,
+           "device_events": len(dev), "top_ms": [[n[:60], ms] for n, ms in top],
+           "by_kind_ms": dict(sorted(by_kind.items(), key=lambda kv: -kv[1]))}
+    if ranges:
+        host, device = {}, {}
+        for e in events:
+            if (e.name.startswith(ranges)
+                    and e.device_type == torch.autograd.DeviceType.CPU):
+                host[e.name] = host.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+        spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                       for e in on_card if e.name.startswith(ranges))
+        for k in dev:
+            start = k.time_range.start
+            inside = [n for s0, s1, n in spans if s0 <= start < s1]
+            before = [n for s0, s1, n in spans if s1 <= start]
+            name = (inside[-1] if inside else
+                    f"{before[-1]} (after)" if before else "(before the step)")
+            device[name] = device.get(name, 0.0) + k.time_range.elapsed_us() / 1e3
+        out["host_ms_by_range"] = host
+        out["device_ms_by_range"] = device
+    return out
+
+
+def warm_up_profiler() -> None:
+    """The profiler's first start sets up CUPTI for seconds: pay it here."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+
+
 def where_time_goes(engine, model, fwd_in, sr: int) -> None:
     """Each serving request of phase 3 (noise seed fixed, so every run has
     the same frame count) and the forward: two warm-ups, the median host
     latency of ``PROFILE_REPEAT`` runs, then one ``torch.profiler`` run for
-    the device's busy time (the union of its kernel and copy intervals),
-    the idle share of that run's wall time and of the median, the kernels
-    launched, and the three kernels with the most device time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    # the profiler's first start sets up CUPTI for seconds: pay it here
-    with profile(activities=acts):
-        torch.ones(1, device="cuda").add_(1)
-        torch.cuda.synchronize()
+    the device's busy time, the idle share of that run's wall time and of
+    the median, the kernels launched, and the three kernels with the most
+    device time."""
+    warm_up_profiler()
 
     def tts(text, lang):
         return lambda: len(engine.tts(text, speaker=4, language=lang,
@@ -384,32 +484,360 @@ def where_time_goes(engine, model, fwd_in, sr: int) -> None:
             audio_s = run()
             times.append((time.perf_counter() - t0) * 1e3)
         median = statistics.median(times)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with profile(activities=acts) as prof:
-            run()
-            torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-        dev = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy_ms = _union_ms((e.time_range.start, e.time_range.end) for e in dev)
-        by_name = {}
-        for e in dev:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+        prof = profile_once(run)
         log("profile " + json.dumps({
             "request": name,
             "audio_s": audio_s,
             "latency_ms": {"median": median, "min": min(times),
                            "max": max(times)},
             "inv_rtf_median": audio_s / median * 1e3 if audio_s else None,
-            "device_busy_ms": busy_ms,
-            "profiled_wall_ms": wall_ms,
-            "idle_share_profiled": 1.0 - busy_ms / wall_ms,
-            "idle_share_at_median": 1.0 - busy_ms / median,
-            "device_events": len(dev),
-            "top_ms": [[n[:60], ms] for n, ms in top],
+            "device_busy_ms": prof["device_busy_ms"],
+            "profiled_wall_ms": prof["profiled_wall_ms"],
+            "idle_share_profiled": prof["idle_share_profiled"],
+            "idle_share_at_median": 1.0 - prof["device_busy_ms"] / median,
+            "device_events": prof["device_events"],
+            "top_ms": prof["top_ms"],
         }))
+
+
+# --------------------------------------------------------------------------
+# training: the GAN fine-tuning path through the Trainer
+# --------------------------------------------------------------------------
+
+# the training phases' device
+TRAIN_DEVICE = "cuda"
+TRAIN_CLIPS = 32
+TRAIN_WARMUP, TRAIN_TIMED = 2, 8
+# card against CPU at full width: B=2, 64 frames (16,384 samples), 24 tokens
+CPU_TRAIN_FRAMES, CPU_TRAIN_TEXT = 64, 24
+# fp32 card against fp32 CPU, TF32 off: each loss term to 1e-4 of its own
+# size; each network's whole gradient to 1e-3 of its L2 norm; each gradient
+# tensor to 2e-2 of its own largest magnitude, or of 1e-5 of its network's
+# largest for the gradients that are zero in exact arithmetic (the attention
+# key's bias) and rounding noise on both sides.  The per-tensor bound is
+# wide because the discriminators are piecewise linear: a leaky-ReLU
+# pre-activation within rounding distance of zero takes the other slope on
+# the other device, and every gradient upstream of it moves by that
+# position's share (7.4e-3 of a tensor's largest value at tiny widths,
+# tests/test_torch_train_cuda.py); with no sign change the two agree to ~1e-6
+TRAIN_LOSS_TOL = 1e-4
+TRAIN_GRAD_NORM_TOL = 1e-3
+TRAIN_GRAD_TOL = 2e-2
+
+
+def sync() -> None:
+    torch.cuda.synchronize()
+
+
+def make_train_set(directory: Path, hps) -> None:
+    """``TRAIN_CLIPS`` clips of 3.5–4.6 s (301–396 frames: the 400-frame
+    bucket), sine mixtures from a numpy seed; IPA texts of 70–90 of the
+    config's symbols (141–181 ids with blanks: the 192 text bucket);
+    speaker ids among the config's; written with the port's ``save_wav``.
+    Points ``hps`` at the filelist."""
+    from personalized_text_to_speech_tpu_torch.data.audio import save_wav
+
+    sr = hps.data.sampling_rate
+    rng = np.random.default_rng(2024)
+    symbols = [s for s in hps.symbols[1:] if s.strip()]
+    lines = []
+    for i in range(TRAIN_CLIPS):
+        n = int(sr * rng.uniform(3.5, 4.6))
+        t = np.arange(n) / sr
+        f0 = rng.uniform(90, 300)
+        wav = sum(a * np.sin(2 * np.pi * f0 * h * t + rng.uniform(0, 6.3))
+                  for h, a in ((1, 0.3), (2, 0.15), (3, 0.08)))
+        wav = wav * (0.6 + 0.4 * np.sin(2 * np.pi * rng.uniform(1, 4) * t))
+        wav = wav + 0.01 * rng.normal(size=n)
+        path = directory / f"clip_{i:02d}.wav"
+        save_wav(str(path), wav, sr)
+        text = "".join(rng.choice(symbols, size=int(rng.integers(70, 91))))
+        sid = int(rng.integers(0, hps.data.n_speakers))
+        lines.append(f"{path}|{sid}|{text}")
+    filelist = directory / "train.txt"
+    filelist.write_text("\n".join(lines) + "\n", encoding="utf-8")
+    hps.data.training_files = str(filelist)
+    hps.data.validation_files = str(filelist)
+
+
+def train_hps(filelist: str, bf16: bool):
+    """``configs/finetune_speaker.json`` with the synthetic filelist, one
+    checkpoint kept, and ``bf16_run`` set."""
+    from personalized_text_to_speech_tpu_torch.config import load_hparams
+
+    hps = load_hparams(str(CONFIG))
+    hps.data.training_files = hps.data.validation_files = filelist
+    hps.train.bf16_run = bf16
+    hps["preserved"] = 1
+    return hps
+
+
+class MasSpy:
+    """Records what MAS got and gave inside the generator forward (the
+    dispatcher is wrapped where the synthesizer calls it), so each step's
+    path can be held against the plain MAS on the same scores."""
+
+    def __init__(self):
+        from personalized_text_to_speech_tpu_torch.models import synthesizer
+
+        self._mod = synthesizer
+        self._real = synthesizer.maximum_path
+        self.calls = []
+
+    def __enter__(self):
+        def spy(neg_cent, x_len, y_len):
+            path = self._real(neg_cent, x_len, y_len)
+            self.calls.append((neg_cent.detach(), x_len, y_len, path))
+            return path
+
+        self._mod.maximum_path = spy
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.maximum_path = self._real
+        return False
+
+
+def check_mas_calls(calls) -> None:
+    from personalized_text_to_speech_tpu_torch.ops.mas import maximum_path_plain
+
+    for i, (neg, x_len, y_len, path) in enumerate(calls):
+        if path.device.type != TRAIN_DEVICE:
+            raise AssertionError("the training step's MAS ran off the card")
+        if not torch.equal(path, maximum_path_plain(neg.float(), x_len, y_len)):
+            raise AssertionError(f"step {i}: MAS path differs from the plain MAS")
+        if int(path.sum().item()) != int(y_len.sum().item()):
+            raise AssertionError(f"step {i}: MAS path misses valid frames")
+
+
+def params_of(trainer):
+    return {f"{n}.{k}": v.detach().clone()
+            for n, st in (("g", trainer.g_state), ("d", trainer.d_state))
+            for k, v in st.module.state_dict().items()}
+
+
+def run_training(mode: str, hps, model_dir: Path, kernels) -> dict:
+    """The training path in one mode: ``Trainer.fit`` for one epoch (2
+    steps, checkpoint at step 0 and at the end, reference export), then
+    ``TRAIN_WARMUP`` + ``TRAIN_TIMED`` more ``Trainer.train_step`` calls,
+    each ended by a synchronise and timed on the host clock, then one
+    profiled step.  Every launch counter is 0 just before and read just
+    after.  Returns the trainer and the numbers."""
+    from personalized_text_to_speech_tpu_torch.train.loop import Trainer
+
+    t0 = time.perf_counter()
+    trainer = Trainer(hps, str(model_dir), device=TRAIN_DEVICE)
+    n_g = sum(p.numel() for p in trainer.g_state.module.parameters())
+    n_d = sum(p.numel() for p in trainer.d_state.module.parameters())
+    log(f"train {mode}: Trainer up in {time.perf_counter() - t0:.2f} s; G "
+        f"{n_g / 1e6:.2f} M params, D {n_d / 1e6:.2f} M; "
+        f"{len(trainer.train_set)} clips, {len(trainer.batcher)} batches of "
+        f"{hps.train.batch_size} per epoch, buckets {trainer.batcher.boundaries}")
+    before = params_of(trainer)
+
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with MasSpy() as spy:
+        trainer.fit(max_epochs=1)
+    fit_s = time.perf_counter() - t0
+    after = params_of(trainer)
+    unchanged = [k for k in before if torch.equal(before[k], after[k])]
+    del before, after
+    if unchanged:
+        raise AssertionError(f"{mode}: parameters not updated: {unchanged[:8]}")
+    check_mas_calls(spy.calls)
+    del spy
+    log(f"train {mode}: fit(1 epoch) took {trainer.global_step} steps in "
+        f"{fit_s:.2f} s (2 checkpoints and the export included); every G and "
+        f"D parameter tensor changed; MAS path of each step equals the plain "
+        f"MAS on the step's own scores")
+
+    batches = list(trainer.batcher)
+    for b in batches:
+        if b["wav"].shape[1] != FWD_FRAMES * hps.data.hop_length or \
+                b["text"].shape[1] != FWD_TEXT:
+            raise AssertionError(f"batch shapes {b['wav'].shape} {b['text'].shape}")
+    metrics = []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(TRAIN_WARMUP):
+        metrics.append(trainer.train_step(batches[i % len(batches)]))
+    sync()
+    times, audio = [], []
+    sr, hop = hps.data.sampling_rate, hps.data.hop_length
+    for i in range(TRAIN_TIMED):
+        b = batches[i % len(batches)]
+        t0 = time.perf_counter()
+        metrics.append(trainer.train_step(b))
+        sync()
+        times.append(time.perf_counter() - t0)
+        audio.append(float(b["wav_lengths"].sum()) / sr)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    warm_up_profiler()
+    prof = profile_once(lambda: metrics.append(trainer.train_step(batches[0])),
+                        top_n=8, ranges="train/")
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    steps = trainer.global_step
+    for m in metrics:
+        bad = [k for k, v in m.items() if not torch.isfinite(v)]
+        if bad:
+            raise AssertionError(f"{mode}: non-finite {bad}")
+    if launches["mas"] != steps:
+        raise AssertionError(f"{mode}: {launches['mas']} MAS launches in "
+                             f"{steps} steps")
+    median = statistics.median(times)
+    result = {
+        "mode": mode, "steps": steps, "launches": launches,
+        "batch": hps.train.batch_size, "frames": FWD_FRAMES, "text": FWD_TEXT,
+        "segment": hps.train.segment_size,
+        "step_ms": {"median": median * 1e3, "min": min(times) * 1e3,
+                    "max": max(times) * 1e3},
+        "audio_s_per_step": statistics.mean(audio),
+        "audio_s_per_wall_s": statistics.mean(audio) / median,
+        "peak_memory_gb": peak_gb,
+        "idle_share_at_median": 1.0 - prof["device_busy_ms"] / (median * 1e3),
+        **prof,
+        "last_losses": {k: metrics[-1][k].item() for k in
+                        ("loss/g/total", "loss/d/total", "loss/g/mel",
+                         "loss/g/kl", "loss/g/dur", "grad_norm_g")},
+    }
+    log("train " + json.dumps(result))
+    return {"trainer": trainer, "result": result}
+
+
+def check_train_outputs(trainer, hps) -> None:
+    """save → a fresh Trainer resumes with the same step, weights, AdamW
+    moments and schedule; the exported ``G_latest.pth`` loads strictly into
+    ``TTSEngine``, which answers a request on the card."""
+    from personalized_text_to_speech_tpu_torch.infer.engine import TTSEngine
+    from personalized_text_to_speech_tpu_torch.train.loop import Trainer
+
+    trainer.save()
+    fresh = Trainer(hps, trainer.model_dir, device=TRAIN_DEVICE)
+    if not fresh.resume() or fresh.global_step != trainer.global_step:
+        raise AssertionError("resume did not restore the step")
+    n_moments = 0
+    for mine, theirs in ((fresh.g_state, trainer.g_state),
+                         (fresh.d_state, trainer.d_state)):
+        if mine.step != theirs.step:
+            raise AssertionError("resume did not restore the update count")
+        ref = theirs.module.state_dict()
+        for k, v in mine.module.state_dict().items():
+            if not torch.equal(v, ref[k]):
+                raise AssertionError(f"resume: param {k} differs")
+        a, b = mine.optimizer.state_dict(), theirs.optimizer.state_dict()
+        for i, st in b["state"].items():
+            for name in ("step", "exp_avg", "exp_avg_sq"):
+                if not torch.equal(a["state"][i][name], st[name]):
+                    raise AssertionError(f"resume: AdamW {name} of {i} differs")
+                n_moments += 1
+        if mine.scheduler.get_last_lr() != theirs.scheduler.get_last_lr():
+            raise AssertionError("resume: learning rate differs")
+    del fresh
+    log(f"train outputs: resume at step {trainer.global_step} restored "
+        f"weights and {n_moments} AdamW state tensors exactly")
+    trainer.export_reference_checkpoint()
+    engine = TTSEngine(hps, checkpoint_path=os.path.join(trainer.model_dir,
+                                                         "G_latest.pth"),
+                       device=TRAIN_DEVICE)
+    ref = trainer.g_state.module.state_dict()
+    for k, v in engine.model.state_dict().items():
+        if not torch.equal(v, ref[k]):
+            raise AssertionError(f"G_latest.pth: {k} differs from the trainer's")
+    out_sr, wav = engine.tts("The fine-tuned voice speaks.", speaker=4,
+                             language="English", rng=5)
+    if out_sr != hps.data.sampling_rate or not np.isfinite(wav).all() or \
+            len(wav) < hps.data.hop_length:
+        raise AssertionError("the exported generator gave bad audio")
+    log(f"train outputs: G_latest.pth loads strictly into TTSEngine; one "
+        f"request gave {len(wav) / out_sr:.3f} s of finite audio")
+
+
+def train_card_against_cpu(hps) -> None:
+    """One fused step at full width, B=2, 64 frames, on the card and on the
+    CPU: same weights, batch and injected draws, modules in ``eval()``."""
+    from personalized_text_to_speech_tpu_torch.models.discriminator import (
+        MultiPeriodDiscriminator,
+    )
+    from personalized_text_to_speech_tpu_torch.models.synthesizer import (
+        SynthesizerTrn,
+    )
+    from personalized_text_to_speech_tpu_torch.train.state import (
+        create_train_state,
+    )
+    from personalized_text_to_speech_tpu_torch.train.step import (
+        Batch,
+        Samples,
+        make_train_step,
+    )
+
+    def build():
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(77)
+            return SynthesizerTrn.from_hparams(hps), MultiPeriodDiscriminator()
+
+    hop = hps.data.hop_length
+    seg = hps.train.segment_size // hop
+    rng = np.random.default_rng(77)
+    n = CPU_TRAIN_FRAMES * hop
+    t = np.arange(n) / hps.data.sampling_rate
+    wav = (0.3 * np.sin(2 * np.pi * rng.uniform(100, 250, size=(2, 1)) * t)
+           + 0.02 * rng.normal(size=(2, n))).astype(np.float32)
+    arrays = dict(
+        text=rng.integers(1, len(hps.symbols), size=(2, CPU_TRAIN_TEXT)).astype(np.int32),
+        text_lengths=np.array([CPU_TRAIN_TEXT, 17], np.int32), wav=wav,
+        wav_lengths=np.array([n, 50 * hop], np.int32),
+        sid=np.array([4, 900], np.int32))
+    draws = (np.array([7, 50 - seg], np.int32),
+             rng.normal(size=(2, CPU_TRAIN_FRAMES, hps.model.inter_channels)
+                        ).astype(np.float32),
+             rng.normal(size=(2, CPU_TRAIN_TEXT, 2)).astype(np.float32))
+    step = make_train_step(hps, debug_grads=True)
+    out = {}
+    for dev in ("cpu", TRAIN_DEVICE):
+        gm, dm = build()
+        g_state = create_train_state(gm.to(dev).eval(), hps, steps_per_epoch=1)
+        d_state = create_train_state(dm.to(dev).eval(), hps, steps_per_epoch=1)
+        t0 = time.perf_counter()
+        out[dev] = step(g_state, d_state, Batch.from_numpy(arrays, dev),
+                        samples=Samples(*(torch.from_numpy(a).to(dev)
+                                          for a in draws)))
+        sync()
+        log(f"train card vs CPU: the {dev} step took "
+            f"{time.perf_counter() - t0:.2f} s")
+    cpu, card = out["cpu"], out[TRAIN_DEVICE]
+    if not torch.equal(card["_out"]["attn"].cpu(), cpu["_out"]["attn"]):
+        raise AssertionError("train card vs CPU: MAS paths differ")
+    worst_loss = 0.0
+    for k, w in cpu.items():
+        if k.startswith("_"):
+            continue
+        err = abs(card[k].item() - w.item())
+        rel = err / max(abs(w.item()), 1e-3)
+        worst_loss = max(worst_loss, rel)
+        if rel > TRAIN_LOSS_TOL:
+            raise AssertionError(f"train card vs CPU: {k} {card[k].item()} "
+                                 f"against {w.item()}")
+    worst, norm_rel = {}, {}
+    for net in ("_grads_g", "_grads_d"):
+        diff = {k: card[net][k].cpu() - w for k, w in cpu[net].items()}
+        norm_rel[net] = (sum(v.double().square().sum().item() for v in diff.values())
+                         / sum(w.double().square().sum().item()
+                               for w in cpu[net].values())) ** 0.5
+        scales = {k: v.abs().max().item() for k, v in cpu[net].items()}
+        floor = 1e-5 * max(scales.values())
+        worst[net] = sorted((v.abs().max().item() / max(scales[k], floor), k)
+                            for k, v in diff.items())[-3:]
+    log(f"train card vs CPU: MAS paths equal; "
+        f"{sum(not k.startswith('_') for k in cpu)} loss terms, worst "
+        f"{worst_loss:.3g} of their size (bound {TRAIN_LOSS_TOL}); gradients "
+        f"of {len(cpu['_grads_g'])} G and {len(cpu['_grads_d'])} D tensors: "
+        f"whole-network error against the norm {norm_rel} (bound "
+        f"{TRAIN_GRAD_NORM_TOL}), the three worst tensors of each against "
+        f"their scale {worst} (bound {TRAIN_GRAD_TOL})")
+    if any(r > TRAIN_GRAD_NORM_TOL for r in norm_rel.values()) or \
+            any(w[-1][0] > TRAIN_GRAD_TOL for w in worst.values()):
+        raise AssertionError("train card vs CPU: gradients out of bounds")
 
 
 def main() -> int:
@@ -526,13 +954,53 @@ def main() -> int:
     phase("6 where the time goes")
     where_time_goes(engine, model, fwd_in, sr)
 
+    serve_launches = launches
+    del engine, model, cpu_engine, fwd_in, out, neg_cent
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        from personalized_text_to_speech_tpu_torch.config import load_hparams
+
+        data_hps = load_hparams(str(CONFIG))
+        (tmp / "data").mkdir()
+        make_train_set(tmp / "data", data_hps)
+        filelist = data_hps.data.training_files
+
+        phase("7 training path in fp32 (TF32 off), full width, B=16")
+        hps32 = train_hps(filelist, bf16=False)
+        fp32 = run_training("fp32", hps32, tmp / "run_fp32", kernels)
+        phase("8 training outputs: save and resume, export and serve")
+        check_train_outputs(fp32["trainer"], hps32)
+        train_results = {"fp32": fp32["result"]}
+        del fp32
+        torch.cuda.empty_cache()
+
+        phase("9 training path as the config says (bf16_run), full width, B=16")
+        bf16 = run_training("bf16", train_hps(filelist, bf16=True),
+                            tmp / "run_bf16", kernels)
+        train_results["bf16"] = bf16["result"]
+        del bf16
+        torch.cuda.empty_cache()
+
+    phase("10 training step, card against CPU, full width, B=2")
+    train_card_against_cpu(hps32)
+
     phase("summary")
+    by_path = {"serve+forward": serve_launches["mas"],
+               **{f"train {m}": r["launches"]["mas"]
+                  for m, r in train_results.items()}}
+    log("launches per path " + json.dumps({
+        "mas": by_path,
+        "train steps": {m: r["steps"] for m, r in train_results.items()},
+    }))
     log(json.dumps({"kernels": [{
         "name": "mas",
         "route": "cuda",
         "source": "personalized_text_to_speech_tpu_torch/csrc/mas.cu",
         "replaces": "personalized_text_to_speech_tpu/ops/mas_pallas.py:93",
-        "launches": launches["mas"],
+        "launches": sum(by_path.values()),
+        "launches_by_path": by_path,
         "max_abs_err": mas_err,
         "ms": mas_ms,
         "device_ms": mas_device_ms,

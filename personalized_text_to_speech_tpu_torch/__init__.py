@@ -3,9 +3,11 @@ trilingual multi-speaker VITS system in ``personalized_text_to_speech_tpu``.
 
 The JAX package is the reference and stays as it is; this package does the
 same work in PyTorch on an NVIDIA H100, module for module, under the same
-names (``config``, ``text``, ``ops``, ``models``, ``infer``, ``utils``).  It
+names (``config``, ``text``, ``data``, ``ops``, ``models``, ``infer``,
+``train``, ``utils``).  It
 imports ``torch`` and nothing of JAX or of the JAX package: what it needs
-from there (the config loader, the text frontend) it keeps as its own copy.
+from there (the config loader, the text frontend, the audio IO and the
+dataset) it keeps as its own copy.
 
 Every Pallas kernel of the JAX package becomes a kernel written by hand for
 Hopper.  The one on the ported path is Monotonic Alignment Search

@@ -16,7 +16,7 @@ models hold (the smallest ‖v‖² is ~1e-3), so the two agree to rounding.
 from __future__ import annotations
 
 import warnings
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -47,19 +47,34 @@ def conv1d(
     bias: bool = True,
     weight_norm: bool = False,
     init_std: Optional[float] = None,
+    stride: int = 1,
 ) -> nn.Conv1d:
     """``nn.Conv1d`` with torch-style symmetric "same" padding by default.
     ``init_std`` draws the weight from N(0, std) (0 → zeros), as the JAX
     package's ``kernel_init`` does for the HiFi-GAN and coupling layers."""
     if padding is None:
         padding = get_padding(kernel_size, dilation)
-    conv = nn.Conv1d(in_channels, out_channels, kernel_size, dilation=dilation,
-                     groups=groups, padding=padding, bias=bias)
+    conv = nn.Conv1d(in_channels, out_channels, kernel_size, stride=stride,
+                     dilation=dilation, groups=groups, padding=padding, bias=bias)
     if init_std == 0.0:
         nn.init.zeros_(conv.weight)
     elif init_std is not None:
         nn.init.normal_(conv.weight, 0.0, init_std)
     return _weight_norm(conv) if weight_norm else conv
+
+
+def conv2d(
+    in_channels: int,
+    out_channels: int,
+    kernel_size: Tuple[int, int],
+    stride: Tuple[int, int] = (1, 1),
+    padding: Tuple[int, int] = (0, 0),
+) -> nn.Conv2d:
+    """Weight-normed ``nn.Conv2d`` of the period discriminators, the
+    counterpart of the JAX package's ``Conv2d`` (``layers.py:242-310``) with
+    ``weight_norm=True``: its ``weight_g`` is ``[C_out, 1, 1, 1]``."""
+    return _weight_norm(nn.Conv2d(in_channels, out_channels, kernel_size,
+                                  stride=stride, padding=padding))
 
 
 def conv_transpose1d(

@@ -60,15 +60,18 @@ def mas_scores(z_p: torch.Tensor, m_p: torch.Tensor,
                logs_p: torch.Tensor) -> torch.Tensor:
     """Gaussian log-likelihood of every frame of ``z_p [B, D, Ts]`` under
     every token's prior ``m_p, logs_p [B, D, Tt]`` → ``neg_cent [B, Ts, Tt]``,
-    the scores MAS aligns (reference ``models.py:470-480``; no gradient)."""
-    m_p32, logs_p32, z_p32 = m_p.float(), logs_p.float(), z_p.float()
-    s_p_sq_r = torch.exp(-2.0 * logs_p32)  # [B, D, Tt]
-    neg_cent1 = torch.sum(-0.5 * _LOG_2PI - logs_p32, dim=1)  # [B, Tt]
-    neg_cent2 = torch.matmul(_t(-0.5 * z_p32 ** 2), s_p_sq_r)
-    neg_cent3 = torch.matmul(_t(z_p32), m_p32 * s_p_sq_r)
-    neg_cent4 = torch.sum(-0.5 * m_p32 ** 2 * s_p_sq_r, dim=1)
-    return (neg_cent1[:, None, :] + neg_cent2 + neg_cent3
-            + neg_cent4[:, None, :])
+    the scores MAS aligns (reference ``models.py:470-480``; no gradient).
+    Float32 throughout, autocast off, as the JAX package's
+    ``preferred_element_type=float32`` products."""
+    with torch.autocast(device_type=z_p.device.type, enabled=False):
+        m_p32, logs_p32, z_p32 = m_p.float(), logs_p.float(), z_p.float()
+        s_p_sq_r = torch.exp(-2.0 * logs_p32)  # [B, D, Tt]
+        neg_cent1 = torch.sum(-0.5 * _LOG_2PI - logs_p32, dim=1)  # [B, Tt]
+        neg_cent2 = torch.matmul(_t(-0.5 * z_p32 ** 2), s_p_sq_r)
+        neg_cent3 = torch.matmul(_t(z_p32), m_p32 * s_p_sq_r)
+        neg_cent4 = torch.sum(-0.5 * m_p32 ** 2 * s_p_sq_r, dim=1)
+        return (neg_cent1[:, None, :] + neg_cent2 + neg_cent3
+                + neg_cent4[:, None, :])
 
 
 class TextEncoder(nn.Module):
@@ -184,9 +187,9 @@ class Generator(nn.Module):
 class SynthesizerTrn(nn.Module):
     """End-to-end VITS synthesizer (reference ``models.py:390-533``).
 
-    Methods: :meth:`forward` (the aligning forward pass of training, run
-    without a backward here), :meth:`infer` (TTS), and the two-stage serving
-    split :meth:`infer_encode` → :meth:`infer_decode`
+    Methods: :meth:`forward` (the aligning forward pass of training, whose
+    graph the train step keeps for its backward), :meth:`infer` (TTS), and
+    the two-stage serving split :meth:`infer_encode` → :meth:`infer_decode`
     (= :meth:`infer_expand` + :meth:`decode_frames`).
     """
 

@@ -1,1 +1,2 @@
-"""Tensor ops of the port: masking, splines, and MAS with its Hopper kernel."""
+"""Tensor ops of the port: masking, splines, spectrograms, and MAS with its
+Hopper kernel."""
