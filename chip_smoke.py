@@ -51,6 +51,21 @@ goes wrong:
 10. one training step at full width, B=2, 64 frames, on the card and on
     the CPU with the same weights and draws: loss terms and gradients
     held to bounds relative to their own size.
+11. the rest of serving at full width (random weights from the serving
+    seed, fp32 with TF32 off unless bf16), every launch counter set to 0
+    first: voice conversion of a 3.0 s wav (speaker 3 → 7; length
+    ``(n // hop) · hop``; card against CPU with injected noise, phase 5's
+    bound; median latency of 5); ``stream_tts`` (chunk 96, halo 64) of the
+    EN and ZH requests against ``tts`` with the same seed (1e-4 of the
+    wav's largest value; time to the first chunk and to the last);
+    ``stream_long_form`` of 3 sentences and ``long_form`` of 5 (pieces +
+    pauses); ``tts_low_latency`` against ``tts`` and its saturation
+    fallback; bf16: the waveform gap against fp32 with fp32's durations
+    fed, the requests and the batch of 8; ``bench.py``'s batch of 64 with
+    PCM16 collection in fp32 and bf16 (1/RTF, one profiled call); 16
+    concurrent requests through the micro-batcher; one round trip each of
+    ``/tts``, ``/tts_stream`` and ``/vc`` on 127.0.0.1.  None of these
+    paths runs MAS.
 
 The last lines are a line of MAS launches per path, a ``{"kernels": [...]}``
 JSON line, the ``nvidia-smi`` name/power-limit line, and
@@ -59,13 +74,17 @@ JSON line, the ``nvidia-smi`` name/power-limit line, and
 
 from __future__ import annotations
 
+import argparse
+import io
 import json
 import os
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
 from pathlib import Path
 
 import numpy as np
@@ -840,6 +859,454 @@ def train_card_against_cpu(hps) -> None:
         raise AssertionError("train card vs CPU: gradients out of bounds")
 
 
+# --------------------------------------------------------------------------
+# the rest of serving: VC, streaming, long-form, the one-call path, bf16,
+# PCM16 at batch 64, the micro-batcher and the HTTP API
+# --------------------------------------------------------------------------
+
+# bench.py's batch: its 8 English sentences cycled to 64, speakers 0-9,
+# PCM16 collection, each call submitted before the last is collected
+BENCH_SENTENCES = [
+    "The quick brown fox jumps over the lazy dog near the river bank.",
+    "Speech synthesis converts written language into audible speech.",
+    "Yesterday it rained all morning, but the afternoon was bright and clear.",
+    "Please remember to close the windows before you leave the building.",
+    "Modern hardware accelerates matrix multiplication astonishingly well.",
+    "A journey of a thousand miles begins with a single step forward.",
+    "She sells seashells by the seashore on sunny summer mornings.",
+    "The committee will announce its final decision early next week.",
+]
+BENCH_BATCH, BENCH_REPS = 64, 3
+STREAM_CHUNK, STREAM_HALO = 96, 64
+VC_SECONDS, VC_SRC, VC_TGT = 3.0, 3, 7
+LONG_TEXT = ("The port now serves long documents. Each sentence is its own "
+             "utterance. They share one bucketed batch on the card. Pauses "
+             "join them. The last one ends here.")
+MICRO_CLIENTS = 16
+
+
+def in_turns(fns: dict, repeat: int = 5):
+    """Each of ``fns`` once to warm up, then ``repeat`` rounds in which they
+    run in turns (in order, then in reverse, and so on), each call ending
+    on the host with its numpy result → ``({name: median host ms},
+    {name: last result})``.  Versions compared in one round share the
+    host's state, which drifts within a run."""
+    out = {name: fn() for name, fn in fns.items()}
+    times = {name: [] for name in fns}
+    names = list(fns)
+    for r in range(repeat):
+        for name in (names if r % 2 == 0 else names[::-1]):
+            t0 = time.perf_counter()
+            out[name] = fns[name]()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    return {name: statistics.median(t) for name, t in times.items()}, out
+
+
+def check_close(name: str, got: np.ndarray, want: np.ndarray,
+                rel: float = CPU_REL_TOL) -> float:
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: shape {got.shape} against {want.shape}")
+    err = float(np.abs(got - want).max())
+    scale = float(np.abs(want).max())
+    log(f"{name}: max abs err {err}, max abs value {scale}, tolerance {rel} x "
+        f"value = {rel * scale}")
+    if not err <= rel * scale:
+        raise AssertionError(f"{name} out of tolerance")
+    return err
+
+
+def vc_wav(sr: int) -> np.ndarray:
+    """``VC_SECONDS`` of a voiced sine mixture from a numpy seed."""
+    rng = np.random.default_rng(33)
+    t = np.arange(int(VC_SECONDS * sr)) / sr
+    f0 = 140.0 * (1 + 0.1 * np.sin(2 * np.pi * 0.7 * t))
+    phase = 2 * np.pi * np.cumsum(f0) / sr
+    wav = sum(a * np.sin(h * phase) for h, a in ((1, 0.3), (2, 0.15), (3, 0.07)))
+    return (wav * (0.6 + 0.4 * np.sin(2 * np.pi * 3 * t))
+            + 0.01 * rng.normal(size=t.shape)).astype(np.float32)
+
+
+def serve_vc(engine, cpu_engine) -> dict:
+    hop, sr = engine.hop_length, engine.sampling_rate
+    wav = vc_wav(sr)
+    ms, res = in_turns(
+        {"vc": lambda: engine.voice_conversion(wav, VC_SRC, VC_TGT, rng=9)})
+    ms, (out_sr, out) = ms["vc"], res["vc"]
+    n = (len(wav) // hop) * hop
+    if out_sr != sr or len(out) != n or not np.isfinite(out).all():
+        raise AssertionError(f"VC gave {len(out)} samples, want {n}")
+    log(f"vc {VC_SECONDS} s, speaker {VC_SRC} -> {VC_TGT}: {len(out)} samples "
+        f"= (n // hop) * hop; latency median of 5 {ms:.2f} ms, 1/RTF "
+        f"{len(out) / sr / ms * 1e3:.2f}")
+    # card against CPU, same weights and injected posterior noise
+    spec, _ = engine.vc_spectrogram(wav)
+    noise = torch.from_numpy(np.random.default_rng(34).normal(
+        size=(1, spec.shape[1], engine.model.inter_channels)).astype(np.float32))
+    outs, specs = {}, {}
+    with torch.no_grad():
+        for name, eng in (("card", engine), ("cpu", cpu_engine)):
+            spec, spec_len = eng.vc_spectrogram(wav)
+            dev = eng.device
+            o, _, _ = eng.model.voice_conversion(
+                spec, torch.tensor([spec_len], device=dev),
+                torch.tensor([VC_SRC], device=dev),
+                torch.tensor([VC_TGT], device=dev), noise=noise.to(dev))
+            specs[name] = spec.cpu().numpy()
+            outs[name] = o[0, : spec_len * hop].cpu().numpy()
+    err_spec = check_close("vc card vs CPU, spectrogram", specs["card"], specs["cpu"])
+    err = check_close("vc card vs CPU, wav", outs["card"], outs["cpu"])
+    return {"latency_ms": ms, "samples": len(out), "err_wav": err,
+            "err_spec": err_spec}
+
+
+def serve_stream(engine) -> dict:
+    """``stream_tts`` (chunk 96, halo 64) against ``tts`` with the same seed,
+    for the EN and ZH requests; time to the first chunk and to the last."""
+    sr = engine.sampling_rate
+    result = {}
+    for text, lang in SERVE_TEXTS[:2]:
+        def stream():
+            t0 = time.perf_counter()
+            gen = engine.stream_tts(text, speaker=4, language=lang, rng=17,
+                                    chunk_frames=STREAM_CHUNK,
+                                    halo_frames=STREAM_HALO)
+            pieces = [next(gen)[1]]
+            first = (time.perf_counter() - t0) * 1e3
+            return first, pieces + [w for _, w in gen]
+
+        firsts = []
+
+        def timed_stream():
+            first, pieces = stream()
+            firsts.append(first)
+            return pieces
+
+        ms, res = in_turns({
+            "tts": lambda: engine.tts(text, speaker=4, language=lang, rng=17),
+            "stream": timed_stream,
+        })
+        first, total, tts_ms = statistics.median(firsts[1:]), ms["stream"], ms["tts"]
+        full, pieces = res["tts"][1], res["stream"]
+        stream_wav = np.concatenate(pieces)
+        err = check_close(f"stream {lang} ({len(pieces)} chunks) vs tts",
+                          stream_wav, full)
+        log(f"stream {lang}: {len(full) / sr:.3f} s audio in {len(pieces)} "
+            f"chunks of {STREAM_CHUNK} frames (halo {STREAM_HALO}); first chunk "
+            f"after {first:.2f} ms, whole stream {total:.2f} ms, tts "
+            f"{tts_ms:.2f} ms (medians of 5, in turns)")
+        result[lang] = {"first_chunk_ms": first, "stream_ms": total,
+                        "tts_ms": tts_ms, "chunks": len(pieces), "err": err,
+                        "audio_s": len(full) / sr}
+    return result
+
+
+def serve_long_form(engine) -> dict:
+    sr = engine.sampling_rate
+    five = engine.split_sentences(LONG_TEXT)
+    if len(five) != 5:
+        raise AssertionError(f"split into {len(five)} sentences")
+    three = " ".join(five[:3])
+    t0 = time.perf_counter()
+    first_ms, got = None, []
+    for _, w in engine.stream_long_form(three, speaker=4, language="English",
+                                        rng=23):
+        first_ms = first_ms or (time.perf_counter() - t0) * 1e3
+        got.append(w)
+    stream_ms = (time.perf_counter() - t0) * 1e3
+    want = [engine.tts(s, speaker=4, language="English", rng=23)[1]
+            for s in five[:3]]
+    if [len(w) for w in got] != [len(w) for w in want]:
+        raise AssertionError("stream_long_form: sentence lengths or order")
+    for g, w in zip(got, want):
+        check_close("stream_long_form sentence vs tts", g, w)
+    t0 = time.perf_counter()
+    _, joined = engine.long_form(LONG_TEXT, speaker=4, language="English",
+                                 pause_ms=120.0, rng=29)
+    long_ms = (time.perf_counter() - t0) * 1e3
+    pieces = engine.synthesize_ids(
+        [engine.text_to_ids(s, "English") for s in five], [4] * 5, rng=29)
+    pause = int(sr * 0.120)
+    want_len = sum(len(p) for p in pieces) + 4 * pause
+    if len(joined) != want_len or not np.isfinite(joined).all():
+        raise AssertionError(f"long_form: {len(joined)} samples, want {want_len}")
+    log(f"long-form: stream_long_form of 3 sentences, first after "
+        f"{first_ms:.2f} ms, all {stream_ms:.2f} ms; long_form of 5 "
+        f"sentences ({len(joined) / sr:.3f} s = pieces + 4 pauses of "
+        f"{pause} samples) in {long_ms:.2f} ms")
+    return {"stream3_first_ms": first_ms, "stream3_ms": stream_ms,
+            "long5_ms": long_ms, "long5_audio_s": len(joined) / sr}
+
+
+def serve_low_latency(engine) -> dict:
+    sr = engine.sampling_rate
+    text, lang = SERVE_TEXTS[0]
+    ms, res = in_turns({
+        "fused": lambda: engine.tts_low_latency(text, speaker=4, language=lang,
+                                                rng=31),
+        "tts": lambda: engine.tts(text, speaker=4, language=lang, rng=31),
+    }, repeat=7)
+    fused_ms, tts_ms = ms["fused"], ms["tts"]
+    fused, two = res["fused"][1], res["tts"][1]
+    if not (np.isfinite(fused).all() and len(fused) % engine.hop_length == 0
+            and len(fused) > 0):
+        raise AssertionError("tts_low_latency: bad audio")
+    _, fallback = engine.tts_low_latency(text, speaker=4, language=lang, rng=31,
+                                         frames_per_token=0.05)
+    check_close("low-latency saturation fallback vs tts", fallback, two)
+    log(f"low-latency {lang}: one call {fused_ms:.2f} ms ({len(fused) / sr:.3f} "
+        f"s), two-stage tts {tts_ms:.2f} ms ({len(two) / sr:.3f} s), medians "
+        f"of 7 in turns; the saturated canvas (0.05 frames/token) fell back "
+        f"to tts")
+    return {"fused_ms": fused_ms, "tts_ms": tts_ms}
+
+
+def bf16_gap(engine, engine16) -> dict:
+    """One request's decode in fp32 and in bf16, both fed the fp32 encode's
+    durations and the same noise: the waveform gap bf16 costs."""
+    ids = engine.text_to_ids(*SERVE_TEXTS[0])
+    rng = np.random.default_rng(37)
+    dev = engine.device
+    dp = torch.from_numpy(rng.normal(size=(1, len(ids), 2)).astype(np.float32))
+    x = torch.tensor([ids], device=dev)
+    xl = torch.tensor([len(ids)], device=dev)
+    sid = torch.tensor([4], device=dev)
+    with torch.no_grad():
+        w_ceil = engine.model.infer_encode(x, xl, sid, dp_noise=dp.to(dev))[0]
+        n = max(int(w_ceil.sum().item()), 1)
+        prior = torch.from_numpy(rng.normal(
+            size=(1, n, engine.model.inter_channels)).astype(np.float32)).to(dev)
+        wavs = []
+        for eng in (engine, engine16):
+            with eng._autocast():
+                enc = eng.model.infer_encode(x, xl, sid, dp_noise=dp.to(dev))
+                wavs.append(eng.model.infer_decode(
+                    w_ceil, *enc[1:], sid, max_len=n, prior_noise=prior
+                )[0].float().cpu().numpy())
+    gap = float(np.abs(wavs[1] - wavs[0]).max())
+    scale = float(np.abs(wavs[0]).max())
+    log(f"bf16 against fp32, fp32's w_ceil fed ({n} frames): max abs gap {gap}, "
+        f"max abs value {scale}, gap/value {gap / scale}")
+    if not np.isfinite(wavs[1]).all() or gap > 0.1 * scale:
+        raise AssertionError("bf16 decode far from fp32")
+    return {"gap": gap, "scale": scale}
+
+
+def serve_requests(engines: dict) -> dict:
+    """The three requests and the batch of 8 (fixed seed) on each engine
+    (fp32 and bf16, in turns): median latency and 1/RTF; then one profiled
+    EN request per engine for its device busy time and events."""
+    sr = next(iter(engines.values())).sampling_rate
+    out = {label: {} for label in engines}
+    ids = [next(iter(engines.values())).text_to_ids(t) for t in BATCH_TEXTS]
+    for text, lang in SERVE_TEXTS:
+        ms, res = in_turns({
+            label: (lambda e=eng: e.tts(text, speaker=4, language=lang, rng=7))
+            for label, eng in engines.items()})
+        for label in engines:
+            wav = res[label][1]
+            if not np.isfinite(wav).all() or len(wav) % engines[label].hop_length:
+                raise AssertionError(f"{label} {lang}: bad audio")
+            out[label][lang] = {"latency_ms": ms[label],
+                                "inv_rtf": len(wav) / sr / ms[label] * 1e3}
+    ms, res = in_turns({
+        label: (lambda e=eng: e.synthesize_ids(ids, list(range(10, 18)), rng=7))
+        for label, eng in engines.items()})
+    text, lang = SERVE_TEXTS[0]
+    for label, eng in engines.items():
+        audio = sum(len(w) for w in res[label]) / sr
+        out[label]["batch of 8"] = {"latency_ms": ms[label],
+                                    "inv_rtf": audio / ms[label] * 1e3}
+        prof = profile_once(lambda: eng.tts(text, speaker=4, language=lang,
+                                            rng=7))
+        out[label]["English profiled"] = {
+            "device_busy_ms": prof["device_busy_ms"],
+            "device_events": prof["device_events"],
+            "idle_share_at_median": 1 - prof["device_busy_ms"]
+            / out[label]["English"]["latency_ms"],
+            "top_ms": prof["top_ms"]}
+        log(f"serve {label} " + json.dumps(out[label]))
+    return out
+
+
+def batch64(engines: dict) -> dict:
+    """bench.py's shape on each engine (fp32 and bf16, trials in turns): 64
+    sentences, PCM16 on the card, call i+1 submitted before i is collected,
+    ``BENCH_REPS`` calls a trial; 1/RTF on the true lengths, the median of
+    the trials; then peak memory and one profiled call per engine."""
+    first = next(iter(engines.values()))
+    sr, hop = first.sampling_rate, first.hop_length
+    texts = (BENCH_SENTENCES * (BENCH_BATCH // len(BENCH_SENTENCES)))[:BENCH_BATCH]
+    ids = [first.text_to_ids(t, "English") for t in texts]
+    sids = [i % 10 for i in range(BENCH_BATCH)]
+
+    def trial(engine):
+        audio = 0.0
+        pending = engine.submit_ids(ids, sids, rng=0, pcm16=True)
+        for i in range(BENCH_REPS):
+            nxt = (engine.submit_ids(ids, sids, rng=0, pcm16=True)
+                   if i + 1 < BENCH_REPS else None)
+            got = engine.collect(pending, hop, dtype=np.int16)
+            if any(w.dtype != np.int16 or len(w) < hop for w in got):
+                raise AssertionError("batch 64: bad PCM16")
+            audio += sum(len(w) for w in got) / sr
+            pending = nxt
+        return audio
+
+    ms, audio = in_turns({label: (lambda e=eng: trial(e))
+                          for label, eng in engines.items()}, repeat=2)
+    out = {}
+    for label, eng in engines.items():
+        torch.cuda.reset_peak_memory_stats()
+        prof = profile_once(lambda: eng.synthesize_ids(ids, sids, rng=0,
+                                                       pcm16=True))
+        per_call = ms[label] / BENCH_REPS
+        out[label] = {
+            "inv_rtf": audio[label] / ms[label] * 1e3,
+            "ms_per_call": per_call,
+            "audio_s_per_call": audio[label] / BENCH_REPS,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "device_busy_ms": prof["device_busy_ms"],
+            "idle_share": 1 - prof["device_busy_ms"] / per_call,
+            "device_events": prof["device_events"], "top_ms": prof["top_ms"]}
+        log(f"batch 64 {label} (PCM16): " + json.dumps(out[label]))
+    return out
+
+
+def serve_micro_batcher(engine) -> dict:
+    from personalized_text_to_speech_tpu_torch.infer.batching import MicroBatcher
+
+    texts = [t for t, _ in SERVE_TEXTS] + BENCH_SENTENCES
+    mb = MicroBatcher(engine, max_batch=16, window_ms=5.0, max_queue=64)
+    try:
+        mb.warmup(texts=(BENCH_SENTENCES[0],), language="English")
+        results, errors = [None] * MICRO_CLIENTS, []
+
+        def call(i):
+            try:
+                results[i] = mb.tts(texts[i % len(texts)], speaker=i % 10)
+            except Exception as e:  # reported below
+                errors.append(e)
+
+        before = mb.stats_snapshot()
+        threads = [threading.Thread(target=call, args=(i,))
+                   for i in range(MICRO_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        wall = (time.perf_counter() - t0) * 1e3
+        after = mb.stats_snapshot()
+    finally:
+        mb.close()
+    if errors or any(r is None or not np.isfinite(r[1]).all() or len(r[1]) == 0
+                     for r in results):
+        raise AssertionError(f"micro-batcher: {errors[:3]}")
+    calls = after["dispatches"] - before["dispatches"]
+    audio = sum(len(r[1]) for r in results) / engine.sampling_rate
+    log(f"micro-batcher: {MICRO_CLIENTS} concurrent requests all answered in "
+        f"{calls} device calls (largest batch {after['max_batch_seen']}), "
+        f"{wall:.2f} ms, {audio:.3f} s of audio, 1/RTF {audio / wall * 1e3:.2f}")
+    return {"requests": MICRO_CLIENTS, "calls": calls, "wall_ms": wall}
+
+
+def serve_http_round_trips(engine) -> dict:
+    """/tts, /tts_stream and /vc on 127.0.0.1: a round trip each to set up
+    the shapes, then one timed."""
+    from scipy.io import wavfile
+
+    from personalized_text_to_speech_tpu_torch.tools.serve import TTSServer
+
+    args = argparse.Namespace(host="127.0.0.1", port=0, max_body_mb=32,
+                              max_batch=16, batch_window_ms=5.0, max_queue=64)
+    srv = TTSServer(engine, args)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    sr, hop = engine.sampling_rate, engine.hop_length
+
+    def post(path, body, headers):
+        """The round trip twice (the first sets up the shapes' plans on the
+        card); the second's time and answer."""
+        for _ in range(2):
+            t0 = time.perf_counter()
+            req = urllib.request.Request(url + path, data=body, headers=headers)
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                data, ctype = resp.read(), resp.headers["Content-Type"]
+        return (time.perf_counter() - t0) * 1e3, data, ctype
+
+    js = {"Content-Type": "application/json"}
+    out = {}
+    try:
+        if urllib.request.urlopen(url + "/healthz", timeout=30).read() != b"ok":
+            raise AssertionError("/healthz")
+        text = json.dumps({"text": SERVE_TEXTS[0][0], "speaker": 4,
+                           "language": "English"}).encode()
+        ms, data, ctype = post("/tts", text, js)
+        got_sr, pcm = wavfile.read(io.BytesIO(data))
+        if ctype != "audio/wav" or got_sr != sr or len(pcm) % hop or not len(pcm):
+            raise AssertionError("/tts")
+        out["/tts"] = {"ms": ms, "samples": len(pcm)}
+        body = json.dumps({"text": SERVE_TEXTS[1][0], "speaker": 4,
+                           "language": "Chinese", "chunk_frames": STREAM_CHUNK}
+                          ).encode()
+        ms, data, ctype = post("/tts_stream", body, js)
+        pcm = np.frombuffer(data[44:], dtype="<i2")
+        if data[:4] != b"RIFF" or len(pcm) % hop or not len(pcm):
+            raise AssertionError("/tts_stream")
+        out["/tts_stream"] = {"ms": ms, "samples": len(pcm)}
+        buf = io.BytesIO()
+        wav = vc_wav(sr)
+        wavfile.write(buf, sr, (wav * 32767).astype(np.int16))
+        ms, data, ctype = post("/vc", buf.getvalue(), {
+            "X-VC": json.dumps({"source": VC_SRC, "target": VC_TGT})})
+        got_sr, pcm = wavfile.read(io.BytesIO(data))
+        if got_sr != sr or len(pcm) != (len(wav) // hop) * hop:
+            raise AssertionError("/vc")
+        out["/vc"] = {"ms": ms, "samples": len(pcm)}
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=30)
+    log("http round trips " + json.dumps(out))
+    return out
+
+
+def rest_of_serving(kernels) -> dict:
+    """Phase 11 at the full width of ``configs/finetune_speaker.json``,
+    random weights from the serving seed, fp32 with TF32 off unless bf16;
+    every launch counter 0 just before and read just after."""
+    from personalized_text_to_speech_tpu_torch.config import load_hparams
+    from personalized_text_to_speech_tpu_torch.infer.engine import TTSEngine
+
+    hps = load_hparams(str(CONFIG))
+    engine = TTSEngine(hps, device="cuda", seed=1234)
+    state = engine.model.state_dict()
+    cpu_engine = TTSEngine(hps, state_dict={k: v.cpu() for k, v in state.items()},
+                           device="cpu")
+    engine16 = TTSEngine(hps, state_dict=state, device="cuda", dtype="bfloat16")
+    warm_up_profiler()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out = {"vc": serve_vc(engine, cpu_engine)}
+    del cpu_engine
+    out["stream"] = serve_stream(engine)
+    out["long_form"] = serve_long_form(engine)
+    out["low_latency"] = serve_low_latency(engine)
+    out["bf16_gap"] = bf16_gap(engine, engine16)
+    both = {"fp32": engine, "bf16": engine16}
+    out["requests"] = serve_requests(both)
+    out["batch64"] = batch64(both)
+    out["micro_batcher"] = serve_micro_batcher(engine16)
+    out["http"] = serve_http_round_trips(engine16)
+    out["launches"] = {name: fn.launches for name, fn in kernels.items()}
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"rest of serving: {out['phase_s']:.2f} s; kernel launches on these "
+        f"paths {out['launches']} (MAS is not on them)")
+    return out
+
+
 def main() -> int:
     phase("1 device")
     if not torch.cuda.is_available():
@@ -986,10 +1453,15 @@ def main() -> int:
     phase("10 training step, card against CPU, full width, B=2")
     train_card_against_cpu(hps32)
 
+    phase("11 rest of serving at full width: VC, streaming, long-form, "
+          "one-call path, bf16, PCM16 batch 64, micro-batcher, HTTP")
+    rest = rest_of_serving(kernels)
+
     phase("summary")
     by_path = {"serve+forward": serve_launches["mas"],
                **{f"train {m}": r["launches"]["mas"]
-                  for m, r in train_results.items()}}
+                  for m, r in train_results.items()},
+               "rest of serving": rest["launches"]["mas"]}
     log("launches per path " + json.dumps({
         "mas": by_path,
         "train steps": {m: r["steps"] for m, r in train_results.items()},

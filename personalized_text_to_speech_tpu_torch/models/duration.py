@@ -85,8 +85,7 @@ class StochasticDurationPredictor(nn.Module):
         x = self.proj(x) * x_mask
         b, _, t = x.shape
         if noise is None:
-            noise = torch.randn((b, 2, t), device=x.device, dtype=x.dtype,
-                                generator=generator)
+            noise = torch.randn((b, 2, t), device=x.device, generator=generator)
 
         if not reverse:
             if w is None:

@@ -122,8 +122,7 @@ class PosteriorEncoder(nn.Module):
         stats = self.proj(h) * y_mask
         m, logs = stats[:, :self.out_channels], stats[:, self.out_channels:]
         if noise is None:
-            noise = torch.randn(m.shape, device=m.device, dtype=m.dtype,
-                                generator=generator)
+            noise = torch.randn(m.shape, device=m.device, generator=generator)
         z = (m + noise.to(m.dtype) * torch.exp(logs)) * y_mask
         return z, m, logs, y_mask
 
@@ -188,9 +187,13 @@ class SynthesizerTrn(nn.Module):
     """End-to-end VITS synthesizer (reference ``models.py:390-533``).
 
     Methods: :meth:`forward` (the aligning forward pass of training, whose
-    graph the train step keeps for its backward), :meth:`infer` (TTS), and
-    the two-stage serving split :meth:`infer_encode` → :meth:`infer_decode`
-    (= :meth:`infer_expand` + :meth:`decode_frames`).
+    graph the train step keeps for its backward), :meth:`infer` (TTS), the
+    two-stage serving split :meth:`infer_encode` → :meth:`infer_decode`
+    (= :meth:`infer_expand` + :meth:`decode_frames`), and
+    :meth:`voice_conversion`.
+
+    Noise drawn from a ``generator`` is drawn in float32 whatever region the
+    caller is in, so a bf16 (autocast) call takes the draws of an fp32 one.
     """
 
     def __init__(self, n_vocab: int, spec_channels: int, segment_size: int,
@@ -358,10 +361,10 @@ class SynthesizerTrn(nn.Module):
         logs_p_exp = torch.matmul(logs_p, _t(attn).to(logs_p.dtype))
         if prior_noise is None:
             noise = torch.randn(m_p_exp.shape, device=m_p.device,
-                                dtype=m_p_exp.dtype, generator=generator)
+                                generator=generator)
         else:
-            noise = _t(prior_noise).to(m_p_exp.dtype)
-        z_p = m_p_exp + noise * torch.exp(logs_p_exp) * noise_scale
+            noise = _t(prior_noise)
+        z_p = m_p_exp + noise.to(m_p_exp.dtype) * torch.exp(logs_p_exp) * noise_scale
         return z_p, y_mask, y_lengths, attn
 
     def _decode(self, z_p, y_mask, sid):
@@ -466,3 +469,31 @@ class SynthesizerTrn(nn.Module):
         )
         o = self._decode(z_p, y_mask, sid)
         return self._trim(o, y_lengths, max_len), y_lengths
+
+    # ------------------------------------------------------------------
+    # voice conversion (reference models.py:525-533)
+    # ------------------------------------------------------------------
+    def voice_conversion(
+        self,
+        y: torch.Tensor,
+        y_lengths: torch.Tensor,
+        sid_src: torch.Tensor,
+        sid_tgt: torch.Tensor,
+        noise: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+    ):
+        """Linear spectrogram ``y [B, T, spec]`` of ``sid_src``'s voice →
+        ``(o_hat [B, T·hop], y_mask [B, T, 1], (z, z_p, z_hat) [B, T, C])``
+        in ``sid_tgt``'s: posterior-encode with the source embedding, the
+        flow forward with it, back with the target's, decode with the
+        target's.  ``noise`` ([B, T, C]) replaces the posterior's draw."""
+        assert self.n_speakers > 0, "voice conversion needs speaker embeddings"
+        g_src, g_tgt = self._speaker(sid_src), self._speaker(sid_tgt)
+        z, _, _, y_mask = self.enc_q(
+            _t(y), y_lengths, g=g_src,
+            noise=None if noise is None else _t(noise), generator=generator,
+        )
+        z_p = self.flow(z, y_mask, g=g_src)
+        z_hat = self.flow(z_p, y_mask, g=g_tgt, reverse=True)
+        o_hat = self.dec(z_hat * y_mask, g=g_tgt, x_mask=y_mask)[:, 0]
+        return o_hat, _t(y_mask), (_t(z), _t(z_p), _t(z_hat))

@@ -129,16 +129,20 @@ class MelConfig:
 
 # the constants live on each device once: a train step takes two
 # spectrograms, and a 4 MB copy from the host per call would cost more
-# than the product
+# than the product.  They are made outside inference mode whatever the
+# first caller's mode (serving's voice conversion runs in it): an inference
+# tensor in the cache could not be saved for a later train step's backward
 @functools.lru_cache(maxsize=16)
 def _basis_on(n_fft: int, win_length: int, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(dft_basis(n_fft, win_length)).to(device)
+    with torch.inference_mode(False):
+        return torch.from_numpy(dft_basis(n_fft, win_length)).to(device)
 
 
 @functools.lru_cache(maxsize=16)
 def _filterbank_on(cfg: MelConfig, device: torch.device) -> torch.Tensor:
     fb = mel_filterbank(cfg.sampling_rate, cfg.n_fft, cfg.n_mels, cfg.fmin, cfg.fmax)
-    return torch.from_numpy(fb).t().contiguous().to(device)  # [n_freq, n_mels]
+    with torch.inference_mode(False):
+        return torch.from_numpy(fb).t().contiguous().to(device)  # [n_freq, n_mels]
 
 
 def linear_spectrogram(y: torch.Tensor, cfg: MelConfig) -> torch.Tensor:
