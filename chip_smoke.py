@@ -66,6 +66,20 @@ goes wrong:
     concurrent requests through the micro-batcher; one round trip each of
     ``/tts``, ``/tts_stream`` and ``/vc`` on 127.0.0.1.  None of these
     paths runs MAS.
+12. the measurement tools at full width, each tool's ``main`` in this
+    process with short settings (TF32 off, every launch counter set to 0
+    before each run): ``bench`` (2 repetitions) and ``bench_cost`` (batch
+    64) in fp32 and bf16; ``bench_serve`` at 1 and 16 clients for 3 s a
+    point in both dtypes; ``bench_stream`` (3 repetitions); ``bench_train``
+    at B=16, 400 frames, 128 tokens, 3 timed steps, in both dtypes;
+    ``profile_ops --stage train`` (fp32, B=16), ``--stage decode`` (bf16,
+    batch 64) and ``--stage encode`` (fp32, batch 64).  Every row is printed; a row that lacks its fields, a number
+    that is not finite, a rate missing, a share of a peak above 1.05, step
+    FLOPs of fp32 and bf16 more than 1 % apart, or a train step of
+    ``bench_train`` or ``profile_ops`` without its one MAS launch on the
+    card fails the run, and so does any MAS call of those runs whose path
+    differs from the plain MAS on the same scores.  The layers behind
+    cuDNN's convolution-backward kernels are printed by shape.
 
 The last lines are a line of MAS launches per path, a ``{"kernels": [...]}``
 JSON line, the ``nvidia-smi`` name/power-limit line, and
@@ -75,6 +89,7 @@ JSON line, the ``nvidia-smi`` name/power-limit line, and
 from __future__ import annotations
 
 import argparse
+import contextlib
 import io
 import json
 import os
@@ -1307,6 +1322,211 @@ def rest_of_serving(kernels) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# the measurement tools at full width
+# --------------------------------------------------------------------------
+
+# the fields each tool's rows carry: the JAX tool's names (device, dtype and
+# tf32 are on every row)
+TOOL_FIELDS = {
+    "bench": ("metric", "value", "unit", "vs_baseline", "batch", "best",
+              "trial_rtfs", "p50_latency_ms"),
+    "bench_cost": ("metric", "batch", "text_bucket", "frame_bucket", "encode",
+                   "decode", "compute_only_x_realtime"),
+    "bench_serve": ("metric", "clients", "requests", "wall_s", "requests_per_s",
+                    "audio_s_per_wall_s", "latency_p50_ms", "latency_p95_ms",
+                    "latency_p99_ms", "shed", "shed_rate", "max_queue",
+                    "dispatches", "mean_batch", "max_batch_seen", "window_ms",
+                    "engine"),
+    "bench_stream": ("metric", "value", "unit", "monolithic_p50_ms",
+                     "stream_total_p50_ms", "chunk_p50_ms", "chunk_audio_ms",
+                     "realtime_margin", "sentence_audio_s", "chunk_frames",
+                     "halo_frames"),
+    "bench_train": ("metric", "value", "unit", "vs_baseline",
+                    "audio_sec_per_step", "audio_sec_per_wall_sec", "batch",
+                    "frames", "tflops_per_step", "mfu", "loss_g"),
+    "profile_ops": ("metric", "stage", "reps", "device_ms_per_rep",
+                    "by_class_ms_per_rep", "flops_per_rep", "top_ops",
+                    "top_kernels", "conv_backward_kernels"),
+}
+STAMP_FIELDS = ("device", "dtype", "tf32")
+# shares of a peak, and the divisor that makes each a fraction
+SHARES = {"mfu": 1.0, "peak_share": 1.0, "mfu_pct": 100.0, "hbm_util_pct": 100.0}
+SHARE_LIMIT = 1.05
+FLOPS_AGREE = 0.01
+# the train-step tools at the training phases' shapes
+TOOL_TRAIN = dict(PTTS_BENCH_BATCH="16", PTTS_BENCH_FRAMES=str(FWD_FRAMES),
+                  PTTS_BENCH_REPS="3")
+
+
+def _values(tree, key=None, lists=True):
+    """Every (key, value) pair of a row, through nested dicts, and through
+    lists too unless ``lists`` is false."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _values(v, k, lists)
+    elif isinstance(tree, list) and lists:
+        for v in tree:
+            yield from _values(v, key, lists)
+    else:
+        yield key, tree
+
+
+def check_tool_rows(name: str, tool, rows) -> None:
+    """Every row has its fields; every number is finite; every rate of the
+    row (outside its lists of op rows, where an op without FLOPs has none)
+    is there on the card; no share of a peak reads above ``SHARE_LIMIT``."""
+    if not rows:
+        raise AssertionError(f"{name}: no rows")
+    for row in rows:
+        missing = [f for f in TOOL_FIELDS[name] + STAMP_FIELDS if f not in row]
+        if missing:
+            raise AssertionError(f"{name}: row lacks {missing}")
+        if row["device"]["platform"] != "gpu":
+            raise AssertionError(f"{name}: row not from the card")
+        fields = {k: v for k, v in row.items() if k != "device"}
+        for key, v in _values(fields):
+            if isinstance(v, float) and not np.isfinite(v):
+                raise AssertionError(f"{name}: {key} = {v}")
+            if key in SHARES and v is not None and v / SHARES[key] > SHARE_LIMIT:
+                raise AssertionError(f"{name}: share {key} = {v}")
+        for key, v in _values(fields, lists=False):
+            if key in tool.RATES and v is None:
+                raise AssertionError(f"{name}: rate {key} missing on the card")
+
+
+@contextlib.contextmanager
+def environ(**env):
+    """The tools' environment settings for one call, restored after."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def measurement_tools(kernels) -> dict:
+    """Phase 12: each tool's ``main`` in this process at full width with
+    short settings, TF32 off; each run's launch counts set to 0 just before
+    and read just after.  MAS must run once in every train step of
+    ``bench_train`` and of ``profile_ops --stage train``, on the card, and
+    each of those calls (``MasSpy``) must give the plain MAS's path on the
+    same scores."""
+    from personalized_text_to_speech_tpu_torch.tools import (
+        bench,
+        bench_cost,
+        bench_serve,
+        bench_stream,
+        bench_train,
+        profile_ops,
+    )
+
+    t_phase = time.perf_counter()
+    runs = {}
+
+    def run(label, tool, argv, trains=False, **env):
+        name = tool.__name__.rsplit(".", 1)[-1]
+        for fn in kernels.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with environ(**env), MasSpy() as spy:
+            rows = tool.main(argv)
+        secs = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in kernels.items()}
+        check_tool_rows(name, tool, rows)
+        if len(spy.calls) != launches["mas"]:
+            raise AssertionError(f"{label}: {len(spy.calls)} MAS calls, "
+                                 f"{launches['mas']} launches")
+        check_mas_calls(spy.calls)
+        if trains and not spy.calls:
+            raise AssertionError(f"{label}: no MAS call")
+        if trains:
+            log(f"{label}: the MAS path of each of the {len(spy.calls)} calls "
+                f"(scores {list(spy.calls[0][0].shape)}) equals the plain MAS "
+                f"on the call's own scores")
+        del spy
+        log(f"{label}: {len(rows)} row(s) in {secs:.2f} s; launches {launches}")
+        runs[label] = {"rows": rows, "seconds": secs, "launches": launches}
+        torch.cuda.empty_cache()
+        return rows
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for dtype in ("float32", "bfloat16"):
+            run(f"bench {dtype}", bench, [], PTTS_BENCH_REPS="2",
+                PTTS_BENCH_DTYPE=dtype)
+        for dtype in ("float32", "bfloat16"):
+            run(f"bench_cost {dtype}", bench_cost,
+                ["--batch", str(BENCH_BATCH), "--reps", "3", "--dtype", dtype])
+        for dtype in ("float32", "bfloat16"):
+            run(f"bench_serve {dtype}", bench_serve,
+                ["--clients", "1,16", "--duration", "3", "--dtype", dtype])
+        run("bench_stream", bench_stream, ["--reps", "3"])
+        steps = {}
+        for dtype in ("float32", "bfloat16"):
+            rows = run(f"bench_train {dtype}", bench_train, [], trains=True,
+                       PTTS_BENCH_DTYPE=dtype, **TOOL_TRAIN)
+            steps[dtype] = rows[0]
+        ops_json = os.path.join(tmp, "ops_train.json")
+        run("profile_ops train float32", profile_ops,
+            ["--stage", "train", "--batch", TOOL_TRAIN["PTTS_BENCH_BATCH"],
+             "--frames", str(FWD_FRAMES), "--dtype", "float32", "--top", "12",
+             "--json", ops_json, "--trace_dir", os.path.join(tmp, "train")],
+            trains=True)
+        with open(ops_json, encoding="utf-8") as f:
+            all_ops = json.load(f)
+        run("profile_ops decode bfloat16", profile_ops,
+            ["--stage", "decode", "--batch", str(BENCH_BATCH),
+             "--dtype", "bfloat16", "--top", "12",
+             "--trace_dir", os.path.join(tmp, "decode")])
+        run("profile_ops encode float32", profile_ops,
+            ["--stage", "encode", "--batch", str(BENCH_BATCH),
+             "--dtype", "float32", "--top", "8",
+             "--trace_dir", os.path.join(tmp, "encode")])
+
+    # every op row of the train profile, not only the printed top ones
+    check_tool_rows("profile_ops", profile_ops, [
+        {**runs["profile_ops train float32"]["rows"][0], "top_ops": all_ops["ops"]}])
+    f32, b16 = steps["float32"]["flops_per_step"], steps["bfloat16"]["flops_per_step"]
+    if abs(f32 - b16) > FLOPS_AGREE * f32:
+        raise AssertionError(f"step FLOPs differ: fp32 {f32}, bf16 {b16}")
+    for label, want in (("bench_train float32", steps["float32"]["steps_run"]),
+                        ("bench_train bfloat16", steps["bfloat16"]["steps_run"]),
+                        ("profile_ops train float32", 2 + profile_ops.REPS)):
+        got = runs[label]["launches"]["mas"]
+        if got != want:
+            raise AssertionError(f"{label}: {got} MAS launches in {want} steps")
+    prof = runs["profile_ops train float32"]["rows"][0]
+    mas_rows = [r for r in all_ops["ops"] if r["category"] == "MAS"]
+    log("profile_ops train, MAS rows: " + json.dumps(mas_rows))
+    if not prof["by_class_ms_per_rep"]["MAS"] > 0:
+        raise AssertionError("profile_ops train: no MAS kernel time on the card; "
+                             "kernels named like it: " + json.dumps(
+                                 [k["kernel"] for k in all_ops["kernels"]
+                                  if "mas" in k["kernel"].lower()]))
+    backward = prof["conv_backward_kernels"]
+    if not backward or not all(k["ops"] and k["ops"][0]["input_shapes"]
+                               for k in backward):
+        raise AssertionError("profile_ops train: no convolution shapes behind "
+                             "cuDNN's dgrad/wgrad kernels")
+    for k in backward:
+        log(f"{k['kernel'][:70]}: {k['calls']} calls, "
+            f"{k['device_time_us'] / profile_ops.REPS / 1e3:.3f} ms per step; "
+            + "; ".join(f"{o['input_shapes'][:3]} {o['layers'][:3]} "
+                        f"{o['device_time_us'] / profile_ops.REPS / 1e3:.3f} ms"
+                        for o in k["ops"][:4]))
+    serving = sum(r["launches"]["mas"] for label, r in runs.items()
+                  if not label.startswith(("bench_train", "profile_ops train")))
+    phase_s = time.perf_counter() - t_phase
+    log(f"measurement tools: {phase_s:.2f} s; step FLOPs fp32 {f32:.6g} and "
+        f"bf16 {b16:.6g}; MAS launches on the serving tools {serving}")
+    return {"runs": runs, "phase_s": phase_s, "serving_mas": serving}
+
+
 def main() -> int:
     phase("1 device")
     if not torch.cuda.is_available():
@@ -1457,11 +1677,18 @@ def main() -> int:
           "one-call path, bf16, PCM16 batch 64, micro-batcher, HTTP")
     rest = rest_of_serving(kernels)
 
+    phase("12 measurement tools at full width")
+    tools = measurement_tools(kernels)
+
     phase("summary")
     by_path = {"serve+forward": serve_launches["mas"],
                **{f"train {m}": r["launches"]["mas"]
                   for m, r in train_results.items()},
-               "rest of serving": rest["launches"]["mas"]}
+               "rest of serving": rest["launches"]["mas"],
+               **{label: tools["runs"][label]["launches"]["mas"]
+                  for label in ("bench_train float32", "bench_train bfloat16",
+                                "profile_ops train float32")},
+               "measurement tools, serving": tools["serving_mas"]}
     log("launches per path " + json.dumps({
         "mas": by_path,
         "train steps": {m: r["steps"] for m, r in train_results.items()},

@@ -33,7 +33,7 @@ from __future__ import annotations
 import logging
 import re
 import time
-from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -202,18 +202,36 @@ class TTSEngine:
         return (torch.from_numpy(x).to(self.device),
                 torch.tensor(lengths, dtype=torch.int32, device=self.device))
 
+    def _encode_padded(self, x, x_lengths, sid, length_scale, noise_scale_w,
+                       gen):
+        """``infer_encode`` under the engine's autocast on a padded batch:
+        the encoder + duration stage's device work, with no wait."""
+        with self._autocast():
+            return self.model.infer_encode(
+                x, x_lengths, sid, length_scale=length_scale,
+                noise_scale_w=noise_scale_w, generator=gen,
+            )
+
     def _encode(self, id_seqs, sid, length_scale, noise_scale_w, gen):
         """The encoder + duration stage on ``id_seqs`` padded to their text
         bucket → ``(stats, f_bucket, n_frames)``, ``stats`` being
         ``infer_encode``'s outputs; the one wait is the scalar ``n_frames``
         that picks the frame bucket."""
-        with self._autocast():
-            stats = self.model.infer_encode(
-                *self._padded(id_seqs), sid, length_scale=length_scale,
-                noise_scale_w=noise_scale_w, generator=gen,
-            )
+        stats = self._encode_padded(*self._padded(id_seqs), sid, length_scale,
+                                    noise_scale_w, gen)
         n_frames = int(stats[0].sum(dim=-1).max())  # the one scalar sync
         return stats, _next_bucket(max(n_frames, 1), self.frame_buckets), n_frames
+
+    def _decode(self, stats, sid, noise_scale, f_bucket, gen, pcm16):
+        """``infer_decode`` under the engine's autocast on the encode's
+        ``stats`` → device tensors ``(wav, y_lengths)``, the wav quantized
+        on the device (:func:`to_pcm16`) with ``pcm16``."""
+        with self._autocast():
+            wav, y_lengths = self.model.infer_decode(
+                *stats, sid, noise_scale=noise_scale, max_len=f_bucket,
+                generator=gen,
+            )
+        return (to_pcm16(wav) if pcm16 else wav), y_lengths
 
     @torch.inference_mode()
     def submit_ids(
@@ -246,12 +264,67 @@ class TTSEngine:
             [list(s)[:cap] for s in id_seqs], sid, length_scale, noise_scale_w,
             gen,
         )
-        with self._autocast():
-            wav, y_lengths = self.model.infer_decode(
-                *stats, sid, noise_scale=noise_scale, max_len=f_bucket,
-                generator=gen,
-            )
-        return (to_pcm16(wav) if pcm16 else wav), y_lengths
+        return self._decode(stats, sid, noise_scale, f_bucket, gen, pcm16)
+
+    # ------------------------------------------------------------------
+    # the two stages alone, and their cost
+    # ------------------------------------------------------------------
+    def stage_calls(
+        self, batch: int, t_bucket: Optional[int] = None,
+        f_bucket: Optional[int] = None, pcm16: bool = True,
+    ) -> Tuple[Callable, Callable, int, int]:
+        """The two serving stages as calls of their own on a dummy batch (ids
+        ``1`` in the first 8 positions, lengths equal to ``t_bucket``,
+        speaker 0, noise seed 0): ``(encode, decode, t_bucket, f_bucket)``.
+        ``encode()`` is :meth:`_encode_padded` on the batch padded once
+        beforehand, so it waits for nothing (the frame count that picks
+        ``f_bucket`` is read once, here); ``decode()`` is :meth:`_decode` on
+        the encode's output.  Both run the engine's serving code under its
+        autocast.  ``t_bucket`` defaults to the second-largest text bucket
+        and ``f_bucket`` to the frame bucket the encode picks."""
+        t_bucket = t_bucket or self.text_buckets[-2]
+        ids = [[1] * 8 + [0] * (t_bucket - 8)] * batch
+        sid = self._sid([0] * batch)
+        x, x_lengths = self._padded(ids)
+
+        @torch.inference_mode()
+        def encode():
+            return self._encode_padded(x, x_lengths, sid, 1.0, 0.8,
+                                       self._generator(0))
+
+        with torch.inference_mode():
+            stats, enc_bucket, _ = self._encode(ids, sid, 1.0, 0.8,
+                                                self._generator(0))
+        f_bucket = f_bucket or enc_bucket
+
+        @torch.inference_mode()
+        def decode():
+            return self._decode(stats, sid, 0.667, f_bucket, self._generator(0),
+                                pcm16)
+
+        return encode, decode, t_bucket, f_bucket
+
+    def cost_analysis(
+        self, batch: int, t_bucket: Optional[int] = None,
+        f_bucket: Optional[int] = None, pcm16: bool = True,
+    ) -> Dict[str, Dict[str, float]]:
+        """FLOPs and bytes of the two serving stages at the given batch and
+        buckets (:meth:`stage_calls`, counted by
+        :func:`~personalized_text_to_speech_tpu_torch.utils.profiling.cost_stats`,
+        so matmuls and convolutions only): the roofline inputs of
+        ``tools/bench_cost.py``.  Same signature, dummy batch and return
+        shape as the JAX engine's ``cost_analysis``."""
+        from personalized_text_to_speech_tpu_torch.utils.profiling import (
+            cost_stats,
+        )
+
+        encode, decode, t_bucket, f_bucket = self.stage_calls(
+            batch, t_bucket, f_bucket, pcm16)
+        return {
+            "encode": cost_stats(encode),
+            "decode": cost_stats(decode),
+            "buckets": {"text": float(t_bucket), "frames": float(f_bucket)},
+        }
 
     @staticmethod
     def collect(handle, hop_length: int, dtype=np.float32) -> List[np.ndarray]:

@@ -7,6 +7,8 @@ bucketed batches (a background thread decodes the next ones) → the fused GAN
 step of :mod:`.step` → scalars at ``log_interval`` → full train-state
 checkpoints at step 0 and every ``eval_interval``, an emergency checkpoint on
 failure, and reference-layout ``G_latest.pth``/``D_latest.pth`` at the end.
+The run directory records the commit it was started from (``githash``) and
+warns when a later run there comes from another.
 Pretrained reference ``G_*.pth``/``D_*.pth`` warm-start the networks.
 
 Runs on the card unless the caller asks for the CPU (``device="cpu"``);
@@ -42,6 +44,7 @@ from personalized_text_to_speech_tpu_torch.train.step import Batch, make_train_s
 from personalized_text_to_speech_tpu_torch.utils import checkpoint as ckpt
 from personalized_text_to_speech_tpu_torch.utils import logging_utils
 from personalized_text_to_speech_tpu_torch.utils import torch_compat as tc
+from personalized_text_to_speech_tpu_torch.utils.profiling import check_git_hash
 
 
 class Trainer:
@@ -69,6 +72,7 @@ class Trainer:
         os.makedirs(model_dir, exist_ok=True)
         save_hparams(hps, os.path.join(model_dir, "config.json"))
         self.logger = logging_utils.get_logger(model_dir)
+        check_git_hash(model_dir)
         self.writer = logging_utils.SummaryWriter(model_dir)
 
         # data ---------------------------------------------------------
