@@ -80,6 +80,23 @@ goes wrong:
     card fails the run, and so does any MAS call of those runs whose path
     differs from the plain MAS on the same scores.  The layers behind
     cuDNN's convolution-backward kernels are printed by shape.
+13. fine-tune and score at full width, in a temporary working directory,
+    every launch counter set to 0 first, TF32 off: ``tools.make_dataset``
+    writes the 2-speaker English formant corpus (80 clips) and
+    ``tools.preprocess`` its filelists and config from
+    ``configs/finetune_speaker.json`` (full width, ``bf16_run``); the port's
+    ``Trainer`` fine-tunes on it on the card (B=16, ``fit`` for 12 epochs,
+    ``evaluate()`` at step 0 and every 24 steps, each call timed on the
+    card); every MAS call of the fit must give the plain MAS's path on the
+    same scores, every ``evaluate()`` finite audio ``y_len · hop`` long and
+    a ``[n_mels, y_len]`` mel, and its files must be under ``eval/``.  Then
+    ``evaluate()`` on the card against ``evaluate()`` on the CPU (fp32, the
+    same weights, injected noise and the CPU's durations; phase 5's bound);
+    ``G_latest.pth`` scored by ``tools.eval_set`` (4 validation lines),
+    ``tools.eval_vc`` (speaker 0 → 1, 2 pairs) and ``tools.eval_pair`` (one
+    pair), every aggregate metric finite; ``tools.rearrange_speaker``
+    compacts it, and a ``TTSEngine`` loads the result strictly and answers
+    a request.
 
 The last lines are a line of MAS launches per path, a ``{"kernels": [...]}``
 JSON line, the ``nvidia-smi`` name/power-limit line, and
@@ -1527,6 +1544,340 @@ def measurement_tools(kernels) -> dict:
     return {"runs": runs, "phase_s": phase_s, "serving_mas": serving}
 
 
+# --------------------------------------------------------------------------
+# fine-tune and score: formant corpus → preprocess → Trainer with evaluate()
+# → the scoring tools
+# --------------------------------------------------------------------------
+
+FT_EPOCHS = 12  # 6 batches of 16 an epoch: 72 steps
+FT_EVAL_INTERVAL = 24  # evaluate() at steps 0, 24 and 48
+FT_EVAL_LINES, FT_VC_PAIRS = 4, 2
+
+
+class Captured:
+    """Records the arrays ``Trainer.evaluate`` hands to the plot functions
+    (the mel ``[n_mels, frames]`` and the alignment), drawing them as
+    usual."""
+
+    def __init__(self):
+        from personalized_text_to_speech_tpu_torch.utils import logging_utils
+
+        self._mod = logging_utils
+        self._real = (logging_utils.plot_spectrogram_to_numpy,
+                      logging_utils.plot_alignment_to_numpy)
+        self.mels, self.alignments = [], []
+
+    def __enter__(self):
+        spec, align = self._real
+
+        def plot_spec(a):
+            self.mels.append(np.array(a))
+            return spec(a)
+
+        def plot_align(a, info=None):
+            self.alignments.append(np.array(a))
+            return align(a, info)
+
+        self._mod.plot_spectrogram_to_numpy = plot_spec
+        self._mod.plot_alignment_to_numpy = plot_align
+        return self
+
+    def __exit__(self, *exc):
+        (self._mod.plot_spectrogram_to_numpy,
+         self._mod.plot_alignment_to_numpy) = self._real
+        return False
+
+
+@contextlib.contextmanager
+def durations(model, w_ceil=None):
+    """Records ``model.infer_encode``'s own ceiled durations in the list it
+    yields; with ``w_ceil``, the encode returns those in place of its own
+    (a ceil next to an integer must not change the frame count between
+    devices)."""
+    real = model.infer_encode
+    own = []
+
+    def fed(*args, **kwargs):
+        mine, *rest = real(*args, **kwargs)
+        own.append(mine.detach().cpu())
+        return (mine if w_ceil is None else w_ceil.to(mine.device, mine.dtype),
+                *rest)
+
+    model.infer_encode = fed
+    try:
+        yield own
+    finally:
+        del model.infer_encode
+
+
+def check_evaluate_outputs(step, out, mels, alignments, hop, n_mels) -> int:
+    """One ``evaluate()``'s outputs: finite audio ``y_len · hop`` long, its
+    mel ``[n_mels, y_len]`` and alignment over ``y_len`` frames, finite;
+    the ground truth's at step 0.  Returns ``y_len``."""
+    images, audios = out
+    gen = audios["gen/audio"]
+    y_len = len(gen) // hop
+    if y_len < 1 or len(gen) != y_len * hop or not np.isfinite(gen).all():
+        raise AssertionError(f"evaluate at step {step}: gen/audio of "
+                             f"{len(gen)} samples, hop {hop}")
+    if mels[0].shape != (n_mels, y_len) or not np.isfinite(mels[0]).all():
+        raise AssertionError(f"evaluate at step {step}: gen/mel "
+                             f"{mels[0].shape}, want {(n_mels, y_len)}")
+    if alignments[0].shape[1] != y_len:
+        raise AssertionError(f"evaluate at step {step}: alignment "
+                             f"{alignments[0].shape} over {y_len} frames")
+    want = {"gen/mel", "gen/attn"} | ({"gt/mel"} if step == 0 else set())
+    if set(images) != want or set(audios) != {"gen/audio"} | (
+            {"gt/audio"} if step == 0 else set()):
+        raise AssertionError(f"evaluate at step {step}: {sorted(images)} "
+                             f"{sorted(audios)}")
+    if step == 0 and not (len(mels) == 2 and np.isfinite(mels[1]).all()):
+        raise AssertionError("evaluate at step 0: no finite gt/mel")
+    return y_len
+
+
+def check_eval_files(writer, steps) -> list:
+    """The eval writer's files: TensorBoard events where tensorboardX is
+    installed, else a ``.wav`` per audio and a ``.npy`` per image."""
+    files = sorted(os.listdir(writer.log_dir))
+    if writer._tb is not None:
+        if not any(f.startswith("events.out.tfevents") for f in files):
+            raise AssertionError(f"no TensorBoard events under eval/: {files}")
+    else:
+        want = ["gt_audio_0.wav", "gt_mel_0.npy"] + [
+            f"gen_{k}_{s}.{ext}" for s in steps
+            for k, ext in (("audio", "wav"), ("mel", "npy"), ("attn", "npy"))]
+        missing = [f for f in want if f not in files]
+        if missing:
+            raise AssertionError(f"eval/ lacks {missing}; has {files}")
+    return files
+
+
+def finite_metrics(name: str, tree) -> None:
+    bad = [k for k, v in _values(tree, lists=False)
+           if isinstance(v, float) and not np.isfinite(v)]
+    if bad:
+        raise AssertionError(f"{name}: metrics not finite: {bad}")
+
+
+def evaluate_card_against_cpu(trainer, hps) -> dict:
+    """``evaluate()`` of the fine-tuned Trainer on the card against a CPU
+    Trainer's with the same G weights, both in fp32 (TF32 off) at step 0:
+    the same injected noise, and the CPU's durations fed to the card's
+    decode.  The audio and both mels are held to ``CPU_REL_TOL`` of their
+    own largest value, the alignment exactly."""
+    from personalized_text_to_speech_tpu_torch.config import load_hparams_from_dict
+    from personalized_text_to_speech_tpu_torch.train.loop import Trainer
+
+    cpu_hps = load_hparams_from_dict(hps.to_dict())
+    cpu_hps.train.bf16_run = False
+    cpu = Trainer(cpu_hps, os.path.join(trainer.model_dir, "cpu"), device="cpu")
+    cpu.g_state.module.load_state_dict(
+        {k: v.cpu() for k, v in trainer.g_state.module.state_dict().items()})
+    rng = np.random.default_rng(13)
+    noise = dict(
+        dp_noise=rng.normal(size=(1, hps.tpu.text_buckets[-1], 2)).astype(np.float32),
+        prior_noise=rng.normal(size=(1, hps.tpu.frame_buckets[-1],
+                                     hps.model.inter_channels)).astype(np.float32))
+    bf16, step = trainer.hps.train.bf16_run, trainer.global_step
+    trainer.hps.train.bf16_run, trainer.global_step = False, 0
+    try:
+        t0 = time.perf_counter()
+        with Captured() as cap_cpu, durations(cpu.g_state.module) as cpu_w:
+            cpu_out = cpu.evaluate(**noise)
+        cpu_s = time.perf_counter() - t0
+        with Captured() as cap, durations(trainer.g_state.module,
+                                          cpu_w[0]) as card_w:
+            card_out = trainer.evaluate(**noise)
+    finally:
+        trainer.hps.train.bf16_run, trainer.global_step = bf16, step
+    moved = int((card_w[0] - cpu_w[0]).abs().gt(0).sum())
+    if (card_w[0] - cpu_w[0]).abs().max() > 1:
+        raise AssertionError("evaluate card vs CPU: durations differ by more "
+                             "than one frame")
+    pairs = {"gen/audio": (card_out[1]["gen/audio"], cpu_out[1]["gen/audio"]),
+             "gen/mel": (cap.mels[0], cap_cpu.mels[0]),
+             "gt/mel": (cap.mels[1], cap_cpu.mels[1])}
+    errs = {}
+    for k, (got, want) in pairs.items():
+        if got.shape != want.shape:
+            raise AssertionError(f"evaluate card vs CPU: {k} {got.shape} "
+                                 f"against {want.shape}")
+        errs[k] = (float(np.abs(got - want).max()), float(np.abs(want).max()))
+    if not np.array_equal(cap.alignments[0], cap_cpu.alignments[0]):
+        raise AssertionError("evaluate card vs CPU: alignments differ")
+    for k, (err, size) in errs.items():
+        log(f"evaluate card vs CPU (fp32), {k}: max abs err {err}, max abs "
+            f"value {size}, tolerance {CPU_REL_TOL} x value = "
+            f"{CPU_REL_TOL * size}")
+    if not all(err <= CPU_REL_TOL * size for err, size in errs.values()):
+        raise AssertionError("evaluate: card and CPU disagree")
+    log(f"evaluate card vs CPU: alignment equal; the card's own durations "
+        f"differ from the CPU's at {moved} of {cpu_w[0].numel()} tokens; "
+        f"the CPU call took {cpu_s:.2f} s")
+    return {"errors": errs, "cpu_s": cpu_s, "durations_moved": moved}
+
+
+def finetune_and_score(kernels) -> dict:
+    """Phase 13: the fine-tune loop of ``docs/WORKFLOW.md`` on the card, in a
+    temporary working directory: corpus, preprocess, ``Trainer.fit`` with
+    ``evaluate()``, ``evaluate()`` card against CPU, the scoring tools on
+    ``G_latest.pth``, and the compacted checkpoint served."""
+    from personalized_text_to_speech_tpu_torch.config import load_hparams
+    from personalized_text_to_speech_tpu_torch.infer.engine import TTSEngine
+    from personalized_text_to_speech_tpu_torch.tools import (
+        eval_pair,
+        eval_set,
+        eval_vc,
+        make_dataset,
+        preprocess,
+        rearrange_speaker,
+    )
+    from personalized_text_to_speech_tpu_torch.train.loop import Trainer
+
+    t_phase = time.perf_counter()
+    result = {}
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+        t0 = time.perf_counter()
+        make_dataset.main(["--out_dir", "corpus", "--anno_out",
+                           "short_character_anno.txt", "--speakers",
+                           "klatt_m,klatt_f", "--languages", "E", "--seed", "0"])
+        preprocess.main(["--base_config", str(CONFIG), "--out_config",
+                         "finetune.json"])
+        result["corpus_s"] = time.perf_counter() - t0
+        hps = load_hparams("finetune.json")
+        hps.train.eval_interval = FT_EVAL_INTERVAL
+        hps["preserved"] = 1
+        hop, n_mels = hps.data.hop_length, hps.data.n_mel_channels
+        log(f"fine-tune: corpus and preprocess in {result['corpus_s']:.2f} s; "
+            f"speakers {dict(hps.speakers.items())}, hidden "
+            f"{hps.model.hidden_channels}, upsampling "
+            f"{hps.model.upsample_rates}, bf16_run {hps.train.bf16_run}")
+
+        trainer = Trainer(hps, os.path.abspath("run"), device=TRAIN_DEVICE)
+        log(f"fine-tune: {len(trainer.train_set)} clips, {len(trainer.batcher)} "
+            f"batches of {hps.train.batch_size} an epoch, buckets "
+            f"{trainer.batcher.boundaries}; {len(trainer.eval_set)} validation "
+            f"clips")
+        evals = []
+        real_evaluate = trainer.evaluate
+
+        def timed_evaluate(**kwargs):
+            sync()
+            t0 = time.perf_counter()
+            with Captured() as cap:
+                out = real_evaluate(**kwargs)
+            sync()
+            evals.append((trainer.global_step, time.perf_counter() - t0, out,
+                          cap))
+            return out
+
+        trainer.evaluate = timed_evaluate
+        for fn in kernels.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with MasSpy() as spy:
+            trainer.fit(max_epochs=FT_EPOCHS)
+        fit_s = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in kernels.items()}
+        del trainer.evaluate
+        steps = trainer.global_step
+        if not launches["mas"] == len(spy.calls) == steps:
+            raise AssertionError(f"fine-tune: {launches['mas']} MAS launches, "
+                                 f"{len(spy.calls)} calls in {steps} steps")
+        check_mas_calls(spy.calls)
+        shapes = sorted({tuple(c[0].shape) for c in spy.calls})
+        del spy
+        eval_steps = [e[0] for e in evals]
+        if eval_steps != list(range(0, steps, FT_EVAL_INTERVAL)) or \
+                len(eval_steps) < 3:
+            raise AssertionError(f"fine-tune: evaluate() at steps {eval_steps}")
+        y_lens = [check_evaluate_outputs(st, out, cap.mels, cap.alignments,
+                                         hop, n_mels)
+                  for st, _, out, cap in evals]
+        files = check_eval_files(trainer.writer_eval, eval_steps)
+        eval_ms = [e[1] * 1e3 for e in evals]
+        log(f"fine-tune: fit({FT_EPOCHS} epochs) took {steps} steps in "
+            f"{fit_s:.2f} s ({len(evals)} evaluate() calls, checkpoints and the "
+            f"export included); MAS: {launches['mas']} launches, scores "
+            f"{shapes}, each path equal to the plain MAS on its own scores")
+        log(f"fine-tune: evaluate() at steps {eval_steps}: {y_lens} frames, ms "
+            f"on the card per call {[round(m, 2) for m in eval_ms]} (median of "
+            f"the calls after the first {statistics.median(eval_ms[1:]):.2f} "
+            f"ms); {len(files)} files under eval/")
+        result.update(steps=steps, fit_s=fit_s, launches=launches,
+                      eval_steps=eval_steps, eval_ms=eval_ms, y_lens=y_lens)
+        del evals
+
+        result["card_vs_cpu"] = evaluate_card_against_cpu(trainer, hps)
+
+        model = os.path.join(trainer.model_dir, "G_latest.pth")
+        config = os.path.join(trainer.model_dir, "config.json")
+        val = hps.data.validation_files
+        emb = trainer.g_state.module.emb_g.weight.detach().cpu()
+        del trainer
+        torch.cuda.empty_cache()
+
+        def tool(label, main, argv):
+            for fn in kernels.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            with MasSpy() as spy:
+                out = main(argv)
+            secs = time.perf_counter() - t0
+            n = {k: fn.launches for k, fn in kernels.items()}
+            if n["mas"] or spy.calls:
+                raise AssertionError(f"{label}: MAS ran ({n})")
+            finite_metrics(label, out)
+            log(f"{label}: {secs:.2f} s; launches {n}; " + json.dumps(out))
+            result[label] = {"out": out, "seconds": secs}
+            return out
+
+        tool("eval_set", eval_set.main,
+             ["--model", model, "--config", config, "--annotations", val,
+              "--limit", str(FT_EVAL_LINES), "--batch", str(FT_EVAL_LINES),
+              "--out_dir", "syn", "--device", TRAIN_DEVICE])
+        tool("eval_vc", eval_vc.main,
+             ["--model", model, "--config", config, "--annotations", val,
+              "--src", "0", "--tgt", "1", "--limit", str(FT_VC_PAIRS),
+              "--device", TRAIN_DEVICE])
+        ref = eval_set.read_annotations(val)[0][0]
+        tool("eval_pair", eval_pair.main,
+             ["--ref_wav", ref, "--syn_wav",
+              os.path.join("syn", os.path.basename(ref)),
+              "--sr", str(hps.data.sampling_rate), "--device", TRAIN_DEVICE])
+        es = result["eval_set"]
+        log(f"eval_set: {FT_EVAL_LINES} utterances, per utterance "
+            f"{es['out']['seconds']['synthesis'] / FT_EVAL_LINES:.4f} s of "
+            f"synthesis on the card and "
+            f"{es['out']['seconds']['metrics'] / FT_EVAL_LINES:.4f} s of "
+            f"metrics on the host")
+
+        rearrange_speaker.main(["--model_dir", model, "--config_dir", config,
+                                "--out_model", "G_compact.pth", "--out_config",
+                                "compact.json", "--out_moegoe", ""])
+        compact = load_hparams("compact.json")
+        engine = TTSEngine(compact, checkpoint_path="G_compact.pth",
+                           device=TRAIN_DEVICE)  # a strict load
+        order = [old for _, old in sorted(hps.speakers.items(),
+                                          key=lambda kv: kv[1])]
+        if not torch.equal(engine.model.emb_g.weight.cpu(), emb[order]):
+            raise AssertionError("rearrange_speaker: speaker rows differ")
+        out_sr, wav = engine.tts("The compact voice speaks.", speaker="klatt_f",
+                                 language="English", rng=3)
+        if out_sr != hps.data.sampling_rate or not np.isfinite(wav).all() or \
+                len(wav) < hop:
+            raise AssertionError("the compacted generator gave bad audio")
+        log(f"rearrange_speaker: {emb.shape[0]} → "
+            f"{compact.data.n_speakers} speakers {dict(compact.speakers.items())};"
+            f" G_compact.pth loads strictly into TTSEngine, one request gave "
+            f"{len(wav) / out_sr:.3f} s of finite audio")
+        del engine
+    result["phase_s"] = time.perf_counter() - t_phase
+    log(f"fine-tune and score: {result['phase_s']:.2f} s")
+    return result
+
+
 def main() -> int:
     phase("1 device")
     if not torch.cuda.is_available():
@@ -1680,6 +2031,11 @@ def main() -> int:
     phase("12 measurement tools at full width")
     tools = measurement_tools(kernels)
 
+    phase("13 fine-tune and score at full width: formant corpus, preprocess, "
+          "Trainer with evaluate(), eval_set, eval_vc, eval_pair, "
+          "rearrange_speaker")
+    scored = finetune_and_score(kernels)
+
     phase("summary")
     by_path = {"serve+forward": serve_launches["mas"],
                **{f"train {m}": r["launches"]["mas"]
@@ -1688,10 +2044,12 @@ def main() -> int:
                **{label: tools["runs"][label]["launches"]["mas"]
                   for label in ("bench_train float32", "bench_train bfloat16",
                                 "profile_ops train float32")},
-               "measurement tools, serving": tools["serving_mas"]}
+               "measurement tools, serving": tools["serving_mas"],
+               "fine-tune and score": scored["launches"]["mas"]}
     log("launches per path " + json.dumps({
         "mas": by_path,
-        "train steps": {m: r["steps"] for m, r in train_results.items()},
+        "train steps": {**{m: r["steps"] for m, r in train_results.items()},
+                        "fine-tune": scored["steps"]},
     }))
     log(json.dumps({"kernels": [{
         "name": "mas",

@@ -4,9 +4,12 @@ checkpoints.
 Counterpart of ``personalized_text_to_speech_tpu/train/loop.py`` (reference
 ``finetune_speaker_v2.py:46-310``) on one device: a filelist of wav files →
 bucketed batches (a background thread decodes the next ones) → the fused GAN
-step of :mod:`.step` → scalars at ``log_interval`` → full train-state
-checkpoints at step 0 and every ``eval_interval``, an emergency checkpoint on
-failure, and reference-layout ``G_latest.pth``/``D_latest.pth`` at the end.
+step of :mod:`.step` → scalars at ``log_interval`` → at step 0 and every
+``eval_interval``, :meth:`Trainer.evaluate` (one validation utterance
+synthesized: its audio, mel and alignment under ``<model_dir>/eval``, and
+the ground truth's at step 0) and a full train-state checkpoint → an
+emergency checkpoint on failure, and reference-layout
+``G_latest.pth``/``D_latest.pth`` at the end.
 The run directory records the commit it was started from (``githash``) and
 warns when a later run there comes from another.
 Pretrained reference ``G_*.pth``/``D_*.pth`` warm-start the networks.
@@ -16,15 +19,14 @@ without a card the default raises.  Metrics stay on the device and are read
 to the host only at ``log_interval``, as ``loop.py:299-300`` does.
 
 Not ported here: the mesh (data, tensor and sequence parallelism become DDP
-later), the spectral-norm discriminator, and ``evaluate()`` with its plots and
-audio (ROADMAP).
+later) and the spectral-norm discriminator (ROADMAP).
 """
 
 from __future__ import annotations
 
 import os
 import time
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,12 +37,22 @@ from personalized_text_to_speech_tpu_torch.data.dataset import (
     DatasetConfig,
     TextAudioSpeakerDataset,
 )
+from personalized_text_to_speech_tpu_torch.infer.engine import _next_bucket
 from personalized_text_to_speech_tpu_torch.models.discriminator import (
     MultiPeriodDiscriminator,
 )
 from personalized_text_to_speech_tpu_torch.models.synthesizer import SynthesizerTrn
+from personalized_text_to_speech_tpu_torch.ops.spectrogram import (
+    MelConfig,
+    linear_spectrogram,
+    spec_to_mel,
+)
 from personalized_text_to_speech_tpu_torch.train.state import create_train_state
-from personalized_text_to_speech_tpu_torch.train.step import Batch, make_train_step
+from personalized_text_to_speech_tpu_torch.train.step import (
+    Batch,
+    make_train_step,
+    uses_bf16,
+)
 from personalized_text_to_speech_tpu_torch.utils import checkpoint as ckpt
 from personalized_text_to_speech_tpu_torch.utils import logging_utils
 from personalized_text_to_speech_tpu_torch.utils import torch_compat as tc
@@ -74,11 +86,19 @@ class Trainer:
         self.logger = logging_utils.get_logger(model_dir)
         check_git_hash(model_dir)
         self.writer = logging_utils.SummaryWriter(model_dir)
+        self.writer_eval = logging_utils.SummaryWriter(
+            os.path.join(model_dir, "eval"))
+        self.mel_cfg = MelConfig.from_hparams(hps)
 
         # data ---------------------------------------------------------
+        ds_cfg = DatasetConfig.from_hparams(hps)
         self.train_set = TextAudioSpeakerDataset(
-            hps.data.training_files, DatasetConfig.from_hparams(hps),
-            hps.symbols, seed=hps.train.seed,
+            hps.data.training_files, ds_cfg, hps.symbols, seed=hps.train.seed,
+        )
+        self.eval_set = (
+            TextAudioSpeakerDataset(hps.data.validation_files, ds_cfg,
+                                    hps.symbols, seed=hps.train.seed)
+            if os.path.exists(hps.data.validation_files) else None
         )
         self.batcher = BucketBatcher(self.train_set, hps.train.batch_size,
                                      seed=hps.train.seed)
@@ -142,7 +162,8 @@ class Trainer:
     # ------------------------------------------------------------------
     def train_step(self, batch_np: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         """One fused step on a batch of :class:`BucketBatcher`; logs at
-        ``log_interval``, checkpoints at step 0 and every ``eval_interval``."""
+        ``log_interval``, evaluates and checkpoints at step 0 and every
+        ``eval_interval``."""
         hps = self.hps
         t0 = time.perf_counter()
         metrics = self.step_fn(self.g_state, self.d_state,
@@ -159,11 +180,126 @@ class Trainer:
             )
             scalars["learning_rate"] = self.g_state.scheduler.get_last_lr()[0]
             self.writer.summarize(self.global_step, scalars)
-        # the reference saves at step 0 too
+        # the reference evaluates and saves at step 0 too (the gt/mel and
+        # gt/audio references land in that first eval)
         if self.global_step % hps.train.eval_interval == 0:
+            self.evaluate()
             self.save()
         self.global_step += 1
         return metrics
+
+    def _autocast(self):
+        """The G forward's precision region, as in the train step."""
+        return torch.autocast(device_type=self.device.type,
+                              dtype=torch.bfloat16, enabled=uses_bf16(self.hps))
+
+    def _noise(self, injected, seed: int, shape) -> torch.Tensor:
+        """The numpy array ``injected[:, :shape[1]]`` on the device, or a
+        float32 normal of ``shape`` from a generator of its own seeded
+        ``seed``: the training draws (``self.generator``, torch's default
+        generator) never move."""
+        if injected is not None:
+            return torch.from_numpy(np.array(injected[:, : shape[1]],
+                                              dtype=np.float32)).to(self.device)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        return torch.randn(shape, generator=gen, device=self.device)
+
+    def evaluate(
+        self, dp_noise=None, prior_noise=None,
+    ) -> Optional[Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]]:
+        """Synthesize one validation utterance to ``<model_dir>/eval``
+        (reference ``finetune_speaker_v2.py:313-368``) by the engine's
+        bucketed two-stage path: item 0 of the validation set (else of the
+        training set) padded to its text bucket → ``infer_encode`` → one
+        scalar sync picks the frame bucket → ``infer_decode`` on it and the
+        mel of the generated wav, on the Trainer's device, under the train
+        step's autocast; the alignment image is built on the host from the
+        ceiled durations.  At step 0 the ground truth's mel and audio (padded
+        to its frame bucket for the mel) are written too.
+
+        G runs in ``eval()`` under ``torch.no_grad()`` and is put back in
+        ``train()``.  The draws come from generators of their own seeded 0
+        (durations) and 1 (prior), as the JAX package's ``PRNGKey(0)`` and
+        ``PRNGKey(1)``, so the training draws and weights are bit for bit
+        as without the call; ``dp_noise`` ``[1, ≥t_bucket, 2]`` and
+        ``prior_noise`` ``[1, ≥f_bucket, inter_channels]`` replace them
+        (their first bucket's worth is used).  Returns the ``images`` and
+        ``audios`` summarized, or ``None`` with no utterance to take."""
+        source = self.eval_set or self.train_set
+        if len(source) == 0:
+            return None
+        hps = self.hps
+        hop = hps.data.hop_length
+        text_buckets = list(hps.tpu.text_buckets)
+        frame_buckets = list(hps.tpu.frame_buckets)
+        item = source[0]
+        ids = np.asarray(item["text"], dtype=np.int64)
+        t_bucket = _next_bucket(len(ids), text_buckets)
+        n_ids = min(len(ids), t_bucket)
+        x = torch.zeros((1, t_bucket), dtype=torch.long)
+        x[0, :n_ids] = torch.from_numpy(ids[:n_ids])
+        x = x.to(self.device)
+        x_lengths = torch.tensor([n_ids], dtype=torch.int32, device=self.device)
+        sid = torch.tensor([int(item["sid"])], dtype=torch.long,
+                           device=self.device)
+
+        model = self.g_state.module
+        was_training = model.training
+        model.eval()
+        try:
+            with torch.no_grad():
+                with self._autocast():
+                    w_ceil, m_p, logs_p, x_mask = model.infer_encode(
+                        x, x_lengths, sid,
+                        dp_noise=self._noise(dp_noise, 0, (1, t_bucket, 2)))
+                n_frames = int(w_ceil.sum(dim=-1).max())  # the one scalar sync
+                f_bucket = _next_bucket(max(n_frames, 1), frame_buckets)
+                with self._autocast():
+                    wav, y_lengths = model.infer_decode(
+                        w_ceil, m_p, logs_p, x_mask, sid, max_len=f_bucket,
+                        prior_noise=self._noise(
+                            prior_noise, 1, (1, f_bucket, m_p.shape[-1])))
+                wav = wav.float()
+                mel = spec_to_mel(linear_spectrogram(wav, self.mel_cfg),
+                                  self.mel_cfg)
+                gt_mel = None
+                if self.global_step == 0:
+                    gt = np.asarray(item["wav"], dtype=np.float32)
+                    pad = _next_bucket(max(len(gt) // hop, 1), frame_buckets) * hop
+                    gt_p = torch.zeros((1, pad), dtype=torch.float32)
+                    gt_p[0, : min(len(gt), pad)] = torch.from_numpy(gt[:pad])
+                    gt_mel = spec_to_mel(
+                        linear_spectrogram(gt_p.to(self.device), self.mel_cfg),
+                        self.mel_cfg)
+        finally:
+            model.train(was_training)
+
+        y_len = int(y_lengths[0])
+        # the alignment from the durations on the host, not the [T_spec,
+        # T_text] canvas from the card
+        durs = w_ceil[0, :n_ids].float().cpu().numpy()
+        attn = np.zeros((min(int(durs.sum()), f_bucket), len(durs)), np.float32)
+        pos = 0
+        for j, d in enumerate(durs.astype(np.int64)):
+            end = min(pos + int(d), attn.shape[0])
+            attn[pos:end, j] = 1.0
+            pos = end
+        images = {
+            "gen/mel": logging_utils.plot_spectrogram_to_numpy(
+                mel[0, :y_len].cpu().numpy().T),
+            "gen/attn": logging_utils.plot_alignment_to_numpy(attn.T),
+        }
+        audios = {"gen/audio": wav[0, : y_len * hop].cpu().numpy()}
+        if gt_mel is not None:
+            gt_frames = min(len(gt), pad) // hop
+            images["gt/mel"] = logging_utils.plot_spectrogram_to_numpy(
+                gt_mel[0, :gt_frames].cpu().numpy().T)
+            audios["gt/audio"] = gt
+        self.writer_eval.summarize(self.global_step, images=images,
+                                   audios=audios,
+                                   audio_sampling_rate=hps.data.sampling_rate)
+        return images, audios
 
     def train_epoch(self) -> None:
         self.g_state.module.train()

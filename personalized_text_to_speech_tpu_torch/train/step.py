@@ -97,6 +97,12 @@ def draw_samples(batch: Batch, hop: int, seg_frames: int, inter_channels: int,
     return Samples(ids_slice, post, dp)
 
 
+def uses_bf16(hps) -> bool:
+    """Whether the config runs the G and D forwards under bf16 autocast
+    (``bf16_run``, or the reference's ``fp16_run``)."""
+    return bool(hps.train.get("bf16_run", hps.train.get("fp16_run", False)))
+
+
 def make_train_step(hps, debug_grads: bool = False):
     """Build ``step(g_state, d_state, batch, generator=None, samples=None)
     → metrics``, which updates both states in place.
@@ -115,7 +121,7 @@ def make_train_step(hps, debug_grads: bool = False):
     c_kl = hps.train.c_kl
     inter_ch = hps.model.inter_channels
     use_sdp = bool(hps.model.get("use_sdp", True))
-    bf16 = bool(hps.train.get("bf16_run", hps.train.get("fp16_run", False)))
+    bf16 = uses_bf16(hps)
 
     def step(g_state: TrainState, d_state: TrainState, batch: Batch,
              generator: Optional[torch.Generator] = None,
