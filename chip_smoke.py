@@ -97,6 +97,23 @@ goes wrong:
     pair), every aggregate metric finite; ``tools.rearrange_speaker``
     compacts it, and a ``TTSEngine`` loads the result strictly and answers
     a request.
+14. the rest of the train step at full width, TF32 off, every launch
+    counter set to 0 before each run, every MAS call held to the plain MAS
+    on its own scores: (a) ``Trainer`` with ``use_spectral_norm`` on a new
+    copy of phase 7's 32-clip set (B=16, 400 frames), ``fit`` for 2 steps
+    and 3 timed steps in fp32 and in ``bf16_run`` (losses finite, every
+    ``u``/``v`` moved, ``D_latest.pth`` with ``weight_orig``/``weight_u``/
+    ``weight_v`` for every conv, save → resume restores ``u``/``v`` bit for
+    bit), then a ``fit`` of 2 steps with ``accum_steps`` 4 and remat
+    ``full``; one D update at B=2 on the card against the CPU, ``u``/``v``
+    within 1e-5 of their norm in fp32 and under bf16 autocast; (b) one step
+    with ``accum_steps`` 1, 2 and 4 at B=16 from the same weights and draws,
+    dropout off: every loss within 1e-4 of k=1's, each network's gradient
+    within 1e-3 of its norm, 2k MAS launches; (c) remat ``dots`` and
+    ``full`` against ``none`` to the same bounds, the MAS count printed;
+    (d) ``tools.bench_mem`` for ``1:none 2:none 4:none 1:dots 1:full
+    4:full`` in fp32 and ``1:none 4:none`` in bf16, each row printed, every
+    field finite, fp32 ``4:none`` and ``1:full`` peaking below ``1:none``.
 
 The last lines are a line of MAS launches per path, a ``{"kernels": [...]}``
 JSON line, the ``nvidia-smi`` name/power-limit line, and
@@ -1878,6 +1895,360 @@ def finetune_and_score(kernels) -> dict:
     return result
 
 
+# --------------------------------------------------------------------------
+# the rest of the train step: the spectral-norm discriminator, exact
+# gradient accumulation, remat, and the memory audit
+# --------------------------------------------------------------------------
+
+# timed Trainer steps of each spectral-norm mode, after its fit
+SN_TIMED = 3
+# one D update, card against CPU: each u/v to this share of its norm (one
+# fp32 matrix-vector product per estimate; bf16 keeps 8 bits of mantissa)
+SN_UV_TOL = 1e-5
+# accumulation and remat against the fused step, all on the card in fp32 with
+# TF32 off, dropout off: each loss within 1e-4 of its size; each network's
+# gradient within 1e-3 of its L2 norm (the same sums in another order, at
+# batch 16/k, where cuDNN may pick other algorithms)
+ACCUM_LOSS_TOL = 1e-4
+ACCUM_GRAD_TOL = 1e-3
+ACCUM_RUNS = ((1, "none"), (2, "none"), (4, "none"), (1, "dots"), (1, "full"))
+MEM_RUNS = (("float32", ("1:none", "2:none", "4:none", "1:dots", "1:full",
+                         "4:full")),
+            ("bfloat16", ("1:none", "4:none")))
+MEM_FIELDS = ("peak_bytes", "resident_bytes", "activation_bytes", "base_bytes",
+              "step_ms")
+
+
+def spectral_buffers(module) -> dict:
+    return {n: b.detach().clone() for n, b in module.named_buffers()
+            if n.endswith(("weight_u", "weight_v"))}
+
+
+def mas_launches_ok(launches: int, steps: int, k: int, remat: str) -> bool:
+    """One MAS launch per generator forward: one a fused step, two per
+    microbatch under accumulation; remat's recompute may add some."""
+    forwards = steps * (1 if k == 1 else 2 * k)
+    return launches == forwards if remat == "none" else launches >= forwards
+
+
+def spectral_training(mode: str, hps, model_dir: Path, kernels, timed: int,
+                      check_resume: bool) -> dict:
+    """Phase 14 (a): ``Trainer`` with the spectral-norm discriminator (and
+    the accumulation and remat ``hps`` asks for): ``fit`` for one epoch
+    (2 steps) and ``timed`` more steps, every launch counter 0 just before;
+    losses finite, every ``u``/``v`` moved, every MAS call equal to the
+    plain MAS, ``D_latest.pth`` with ``weight_orig``/``weight_u``/
+    ``weight_v`` for every conv; ``save`` → resume restores them bit for
+    bit when ``check_resume``."""
+    from personalized_text_to_speech_tpu_torch.models.layers import (
+        SpectralNormConv1d,
+        SpectralNormConv2d,
+    )
+    from personalized_text_to_speech_tpu_torch.train.loop import Trainer
+    from personalized_text_to_speech_tpu_torch.utils import torch_compat as tc
+
+    trainer = Trainer(hps, str(model_dir), device=TRAIN_DEVICE)
+    d = trainer.d_state.module
+    uv_before = spectral_buffers(d)
+    convs = [n for n, m in d.named_modules()
+             if isinstance(m, (SpectralNormConv1d, SpectralNormConv2d))]
+    if not convs or len(uv_before) != 2 * len(convs):
+        raise AssertionError(f"{mode}: the discriminator has no spectral norm")
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with MasSpy() as spy:
+        trainer.fit(max_epochs=1)
+        fit_s = time.perf_counter() - t0
+        batches = list(trainer.batcher)
+        metrics, times = [], []
+        for i in range(timed):
+            t0 = time.perf_counter()
+            metrics.append(trainer.train_step(batches[i % len(batches)]))
+            sync()
+            times.append(time.perf_counter() - t0)
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    steps = trainer.global_step
+    if len(spy.calls) != launches["mas"] or not mas_launches_ok(
+            launches["mas"], steps, int(hps.train.get("accum_steps", 1)),
+            str(hps.train.get("remat", "none"))):
+        raise AssertionError(f"{mode}: {launches['mas']} MAS launches, "
+                             f"{len(spy.calls)} calls in {steps} steps")
+    check_mas_calls(spy.calls)
+    shapes = sorted({tuple(c[0].shape) for c in spy.calls})
+    del spy
+    for m in metrics:
+        bad = [k for k, v in m.items() if not torch.isfinite(v)]
+        if bad:
+            raise AssertionError(f"{mode}: non-finite {bad}")
+    uv_after = spectral_buffers(d)
+    # a conv_post's u has one element, always 1 after normalising
+    still = [n for n in uv_before if uv_before[n].numel() > 1
+             and torch.equal(uv_before[n], uv_after[n])]
+    if still:
+        raise AssertionError(f"{mode}: u/v did not move: {still[:6]}")
+    state, _ = tc.load_torch_checkpoint(str(model_dir / "D_latest.pth"))
+    missing = [f"{c}.{key}" for c in convs
+               for key in ("weight_orig", "weight_u", "weight_v")
+               if f"{c}.{key}" not in state]
+    if missing or any(k.endswith(("weight_g", ".weight")) for k in state):
+        raise AssertionError(f"{mode}: D_latest.pth keys wrong: {missing[:6]}")
+    result = {"mode": mode, "steps": steps, "launches": launches,
+              "mas_shapes": shapes, "fit_s": fit_s,
+              "accum_steps": int(hps.train.get("accum_steps", 1)),
+              "remat": str(hps.train.get("remat", "none")),
+              "spectral_convs": len(convs)}
+    if times:
+        result["step_ms"] = {"median": statistics.median(times) * 1e3,
+                             "min": min(times) * 1e3, "max": max(times) * 1e3}
+        result["last_losses"] = {k: metrics[-1][k].item() for k in
+                                 ("loss/g/total", "loss/d/total", "grad_norm_d")}
+    if check_resume:
+        trainer.save()
+        fresh = Trainer(hps, str(model_dir), device=TRAIN_DEVICE)
+        if not fresh.resume() or fresh.global_step != steps:
+            raise AssertionError(f"{mode}: resume did not restore the step")
+        got = spectral_buffers(fresh.d_state.module)
+        if set(got) != set(uv_after) or not all(
+                torch.equal(got[n], uv_after[n]) for n in got):
+            raise AssertionError(f"{mode}: resume did not restore u/v")
+        del fresh
+        result["resume"] = f"{len(got)} u/v buffers restored bit for bit"
+    log(f"spectral {mode}: " + json.dumps(result))
+    del trainer
+    torch.cuda.empty_cache()
+    return result
+
+
+def spectral_card_against_cpu(hps) -> dict:
+    """Phase 14 (a): one D update (forward with the power iteration on,
+    loss, backward, AdamW) of the spectral-norm ensemble at B=2 × segment on
+    the CPU in fp32 and on the card in fp32 and under bf16 autocast, from
+    the same weights and audio: each ``u``/``v`` against the CPU's."""
+    from personalized_text_to_speech_tpu_torch.models.discriminator import (
+        MultiPeriodDiscriminator,
+    )
+    from personalized_text_to_speech_tpu_torch.models.layers import (
+        power_iteration,
+    )
+    from personalized_text_to_speech_tpu_torch.train import losses
+    from personalized_text_to_speech_tpu_torch.train.state import (
+        create_train_state,
+    )
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(88)
+        weights = MultiPeriodDiscriminator(use_spectral_norm=True).state_dict()
+    rng = np.random.default_rng(88)
+    audio = [torch.from_numpy((0.3 * rng.normal(size=(2, hps.train.segment_size))
+                               ).astype(np.float32)) for _ in range(2)]
+    uv = {}
+    for label, dev, bf16 in (("cpu", "cpu", False),
+                             ("card fp32", TRAIN_DEVICE, False),
+                             ("card bf16", TRAIN_DEVICE, True)):
+        d = MultiPeriodDiscriminator(use_spectral_norm=True)
+        d.load_state_dict(weights)
+        d.to(dev)
+        st = create_train_state(d, hps, steps_per_epoch=1)
+        y, y_hat = (a.to(dev) for a in audio)
+        with torch.autocast(device_type=dev, dtype=torch.bfloat16,
+                            enabled=bf16), power_iteration(d):
+            y_d_r, y_d_g, _, _ = d(y, y_hat)
+        loss, _, _ = losses.discriminator_loss(y_d_r, y_d_g)
+        st.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        st.apply_gradients()
+        uv[label] = {n: b.cpu() for n, b in spectral_buffers(d).items()}
+        if any(b.dtype != torch.float32 for b in uv[label].values()):
+            raise AssertionError(f"{label}: u/v left float32")
+    moved = sum(not torch.equal(uv["cpu"][n], weights[n]) for n in uv["cpu"]
+                if weights[n].numel() > 1)
+    worst = {}
+    for label in ("card fp32", "card bf16"):
+        worst[label] = max(
+            ((uv[label][n] - w).abs().max() / w.norm()).item()
+            for n, w in uv["cpu"].items())
+    log(f"spectral card vs CPU: one D update moved {moved} of {len(uv['cpu'])} "
+        f"u/v; worst error against the vector's norm {worst} (bound {SN_UV_TOL})")
+    if any(v > SN_UV_TOL for v in worst.values()):
+        raise AssertionError("spectral card vs CPU: u/v out of bounds")
+    return worst
+
+
+def accum_and_remat(filelist: str, kernels) -> dict:
+    """Phase 14 (b) and (c): one step at B=16 (a batch of the synthetic set,
+    400 frames, 192 tokens) from the same weights and draws, G and D in
+    ``eval()`` (dropout off), with ``accum_steps`` 1, 2, 4 and with remat
+    ``dots`` and ``full``: each held to the fused step; every MAS call
+    counted and held to the plain MAS on its own scores."""
+    from personalized_text_to_speech_tpu_torch.data.dataset import (
+        BucketBatcher,
+        DatasetConfig,
+        TextAudioSpeakerDataset,
+    )
+    from personalized_text_to_speech_tpu_torch.models.discriminator import (
+        MultiPeriodDiscriminator,
+    )
+    from personalized_text_to_speech_tpu_torch.models.synthesizer import (
+        SynthesizerTrn,
+    )
+    from personalized_text_to_speech_tpu_torch.train.state import (
+        create_train_state,
+    )
+    from personalized_text_to_speech_tpu_torch.train.step import (
+        Batch,
+        draw_samples,
+        make_train_step,
+    )
+
+    hps = train_hps(filelist, bf16=False)
+    hop = hps.data.hop_length
+    ds = TextAudioSpeakerDataset(filelist, DatasetConfig.from_hparams(hps),
+                                 hps.symbols, seed=hps.train.seed)
+    batch = Batch.from_numpy(next(iter(BucketBatcher(ds, 16, seed=0))),
+                             TRAIN_DEVICE)
+    gen = torch.Generator(device=TRAIN_DEVICE)
+    gen.manual_seed(99)
+    samples = draw_samples(batch, hop, hps.train.segment_size // hop,
+                           hps.model.inter_channels, True, gen)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(55)
+        g, d = SynthesizerTrn.from_hparams(hps), MultiPeriodDiscriminator()
+    g_weights = {k: v.clone() for k, v in g.state_dict().items()}
+    d_weights = {k: v.clone() for k, v in d.state_dict().items()}
+    g.to(TRAIN_DEVICE).eval()
+    d.to(TRAIN_DEVICE).eval()
+    runs = {}
+    for k, remat in ACCUM_RUNS:
+        g.load_state_dict(g_weights)
+        d.load_state_dict(d_weights)
+        g_state = create_train_state(g, hps, steps_per_epoch=1)
+        d_state = create_train_state(d, hps, steps_per_epoch=1)
+        step = make_train_step(hps, debug_grads=True, accum_steps=k, remat=remat)
+        for fn in kernels.values():
+            fn.launches = 0
+        sync()
+        t0 = time.perf_counter()
+        with MasSpy() as spy:
+            m = step(g_state, d_state, batch, samples=samples)
+            sync()
+        secs = time.perf_counter() - t0
+        launches = kernels["mas"].launches
+        if launches != len(spy.calls) or not mas_launches_ok(launches, 1, k,
+                                                             remat):
+            raise AssertionError(f"k={k} {remat}: {launches} MAS launches, "
+                                 f"{len(spy.calls)} calls")
+        check_mas_calls(spy.calls)
+        shapes = sorted({tuple(c[0].shape) for c in spy.calls})
+        del spy
+        runs[(k, remat)] = {
+            "losses": {n: v.item() for n, v in m.items() if not n.startswith("_")},
+            "grads": {net: {n: v.clone() for n, v in m[net].items()
+                            if v is not None}
+                      for net in ("_grads_g", "_grads_d")},
+            "mas_launches": launches, "mas_shapes": shapes,
+            "first_step_ms": secs * 1e3,
+        }
+        del m, step, g_state, d_state
+        torch.cuda.empty_cache()
+    ref = runs[(1, "none")]
+    report = {}
+    for key, run in runs.items():
+        loss_err = max(abs(v - ref["losses"][n]) / max(abs(ref["losses"][n]), 1e-3)
+                       for n, v in run["losses"].items())
+        grad_err = {}
+        for net, want in ref["grads"].items():
+            got = run["grads"][net]
+            if set(got) != set(want):
+                raise AssertionError(f"{key}: {net} has other tensors")
+            diff = sum((got[n] - w).double().square().sum().item()
+                       for n, w in want.items())
+            norm = sum(w.double().square().sum().item() for w in want.values())
+            grad_err[net] = (diff / norm) ** 0.5
+        report[f"{key[0]}:{key[1]}"] = {
+            "loss_rel_err": loss_err, "grad_rel_err": grad_err,
+            "mas_launches": run["mas_launches"], "mas_shapes": run["mas_shapes"],
+            "first_step_ms": run["first_step_ms"]}
+        if loss_err > ACCUM_LOSS_TOL or \
+                any(e > ACCUM_GRAD_TOL for e in grad_err.values()):
+            raise AssertionError(f"{key}: against the fused step {report}")
+    log("accumulation and remat against the fused step (losses bound "
+        f"{ACCUM_LOSS_TOL}, gradients {ACCUM_GRAD_TOL} of the norm): "
+        + json.dumps(report))
+    del runs, g, d
+    torch.cuda.empty_cache()
+    return report
+
+
+def bench_mem_rows(kernels) -> dict:
+    """Phase 14 (d): ``tools.bench_mem``'s ``main`` in this process, B=16 ×
+    400 frames, 96 tokens; every field there and finite, and in fp32
+    ``4:none`` and ``1:full`` peaking below ``1:none``."""
+    from personalized_text_to_speech_tpu_torch.tools import bench_mem
+
+    rows, launches = {}, {}
+    for dtype, combos in MEM_RUNS:
+        for fn in kernels.values():
+            fn.launches = 0
+        for row in bench_mem.main(["--dtype", dtype, "--combos", *combos]):
+            if row["device"]["platform"] != "gpu":
+                raise AssertionError("bench_mem: row not from the card")
+            bad = [f for f in MEM_FIELDS if not isinstance(row.get(f), (int, float))
+                   or not np.isfinite(row[f])]
+            if bad:
+                raise AssertionError(f"bench_mem: {bad} missing or not finite")
+            rows[f"{dtype} {row['accum_steps']}:{row['remat']}"] = row
+        launches[dtype] = kernels["mas"].launches
+    fp32 = {k.split()[1]: r["peak_bytes"] for k, r in rows.items()
+            if k.startswith("float32")}
+    if not fp32["4:none"] < fp32["1:none"] or not fp32["1:full"] < fp32["1:none"]:
+        raise AssertionError(f"bench_mem: fp32 peaks {fp32}")
+    log(f"bench_mem: MAS launches {launches}; fp32 peaks {fp32}")
+    return {"rows": rows, "launches": launches}
+
+
+def rest_of_train_step(kernels, weight_norm_ms: dict) -> dict:
+    """Phase 14: (a) the spectral-norm discriminator through ``Trainer`` in
+    fp32 and bf16, and once more with ``accum_steps`` 4 and remat ``full``;
+    one D update card against CPU; (b, c) accumulation and remat against
+    the fused step; (d) ``tools.bench_mem``."""
+    from personalized_text_to_speech_tpu_torch.config import load_hparams
+
+    t_phase = time.perf_counter()
+    result = {"spectral": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        data_hps = load_hparams(str(CONFIG))
+        (tmp / "data").mkdir()
+        make_train_set(tmp / "data", data_hps)
+        filelist = data_hps.data.training_files
+        for mode, bf16, extra in (("fp32", False, {}), ("bf16", True, {}),
+                                  ("fp32 k=4 full", False,
+                                   {"accum_steps": 4, "remat": "full"})):
+            hps = train_hps(filelist, bf16=bf16)
+            hps.model.use_spectral_norm = True
+            for key, value in extra.items():
+                hps.train[key] = value
+            run = spectral_training(mode, hps, tmp / mode.replace(" ", "_"),
+                                    kernels, timed=0 if extra else SN_TIMED,
+                                    check_resume=mode == "fp32")
+            if mode in weight_norm_ms:
+                run["against_weight_norm"] = (run["step_ms"]["median"]
+                                              / weight_norm_ms[mode])
+                log(f"spectral {mode}: step median "
+                    f"{run['step_ms']['median']:.2f} ms against the weight-norm "
+                    f"step's {weight_norm_ms[mode]:.2f} ms (phases 7/9): "
+                    f"{run['against_weight_norm']:.3f}x")
+            result["spectral"][mode] = run
+        result["uv_card_vs_cpu"] = spectral_card_against_cpu(
+            train_hps(filelist, bf16=False))
+        result["accum"] = accum_and_remat(filelist, kernels)
+    result["bench_mem"] = bench_mem_rows(kernels)
+    result["phase_s"] = time.perf_counter() - t_phase
+    log(f"rest of the train step: {result['phase_s']:.2f} s")
+    return result
+
+
 def main() -> int:
     phase("1 device")
     if not torch.cuda.is_available():
@@ -2036,6 +2407,11 @@ def main() -> int:
           "rearrange_speaker")
     scored = finetune_and_score(kernels)
 
+    phase("14 rest of the train step at full width: spectral-norm D, "
+          "accumulation, remat, bench_mem")
+    rest_step = rest_of_train_step(
+        kernels, {m: r["step_ms"]["median"] for m, r in train_results.items()})
+
     phase("summary")
     by_path = {"serve+forward": serve_launches["mas"],
                **{f"train {m}": r["launches"]["mas"]
@@ -2045,11 +2421,19 @@ def main() -> int:
                   for label in ("bench_train float32", "bench_train bfloat16",
                                 "profile_ops train float32")},
                "measurement tools, serving": tools["serving_mas"],
-               "fine-tune and score": scored["launches"]["mas"]}
+               "fine-tune and score": scored["launches"]["mas"],
+               **{f"spectral {m}": r["launches"]["mas"]
+                  for m, r in rest_step["spectral"].items()},
+               **{f"step k={k}": r["mas_launches"]
+                  for k, r in rest_step["accum"].items()},
+               **{f"bench_mem {dt}": n
+                  for dt, n in rest_step["bench_mem"]["launches"].items()}}
     log("launches per path " + json.dumps({
         "mas": by_path,
         "train steps": {**{m: r["steps"] for m, r in train_results.items()},
-                        "fine-tune": scored["steps"]},
+                        "fine-tune": scored["steps"],
+                        **{f"spectral {m}": r["steps"]
+                           for m, r in rest_step["spectral"].items()}},
     }))
     log(json.dumps({"kernels": [{
         "name": "mas",

@@ -1,7 +1,7 @@
 """GAN discriminators: one multi-scale (1-D) and five multi-period (2-D).
 
 Counterpart of ``personalized_text_to_speech_tpu/models/discriminator.py``
-(reference ``models.py:299-386``), weight-norm variant.  ``DiscriminatorS``
+(reference ``models.py:299-386``).  ``DiscriminatorS``
 is a stack of grouped 1-D convs; ``DiscriminatorP`` pads the waveform with a
 reflection to a whole number of periods and folds it into ``[B, 1, T/p, p]``.
 The ensemble scores (real, generated) pairs with every member and returns
@@ -10,7 +10,15 @@ the logits and the feature maps of the feature-matching loss.
 Module names are the reference's (``discriminators.{0..5}.convs.{i}``,
 ``conv_post``), so reference ``D_*.pth`` files load as they are.  Feature
 maps are torch's ``[B, C, T]`` and ``[B, C, T/p, p]``; the JAX package keeps
-channels last.  The spectral-norm variant is not ported (ROADMAP).
+channels last.
+
+``use_spectral_norm`` (reference ``models.py:304,339``) swaps every conv's
+weight norm, ``conv_post`` included, for spectral norm
+(``models/layers.py``): keys ``weight_orig``/``weight_u``/``weight_v``.
+The ensemble scores real then generated audio in two calls per member, so
+inside :func:`~.layers.power_iteration` one ensemble call advances each
+estimate twice (real at u1, fake at u2), as the JAX step does
+(``train/step.py:45-53``).
 """
 
 from __future__ import annotations
@@ -31,17 +39,21 @@ from personalized_text_to_speech_tpu_torch.models.layers import (
 class DiscriminatorP(nn.Module):
     """Period discriminator (reference ``models.py:299-333``)."""
 
-    def __init__(self, period: int, kernel_size: int = 5, stride: int = 3):
+    def __init__(self, period: int, kernel_size: int = 5, stride: int = 3,
+                 use_spectral_norm: bool = False):
         super().__init__()
         self.period = period
         pad = (kernel_size - 1) // 2
+        sn = use_spectral_norm
         chans = [1, 32, 128, 512, 1024]
         self.convs = nn.ModuleList(
-            conv2d(cin, cout, (kernel_size, 1), (stride, 1), (pad, 0))
+            conv2d(cin, cout, (kernel_size, 1), (stride, 1), (pad, 0),
+                   spectral_norm=sn)
             for cin, cout in zip(chans[:-1], chans[1:])
         )
-        self.convs.append(conv2d(1024, 1024, (kernel_size, 1), (1, 1), (pad, 0)))
-        self.conv_post = conv2d(1024, 1, (3, 1), (1, 1), (1, 0))
+        self.convs.append(conv2d(1024, 1024, (kernel_size, 1), (1, 1), (pad, 0),
+                                 spectral_norm=sn))
+        self.conv_post = conv2d(1024, 1, (3, 1), (1, 1), (1, 0), spectral_norm=sn)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         """x: ``[B, L]`` → (logits ``[B, N]``, feature maps)."""
@@ -73,13 +85,16 @@ class DiscriminatorS(nn.Module):
         (1024, 1024, 5, 1, 1, 2),
     )
 
-    def __init__(self):
+    def __init__(self, use_spectral_norm: bool = False):
         super().__init__()
+        sn = use_spectral_norm
         self.convs = nn.ModuleList(
-            conv1d(cin, cout, k, stride=s, groups=g, padding=p, weight_norm=True)
+            conv1d(cin, cout, k, stride=s, groups=g, padding=p,
+                   weight_norm=not sn, spectral_norm=sn)
             for cin, cout, k, s, g, p in self.SPECS
         )
-        self.conv_post = conv1d(1024, 1, 3, padding=1, weight_norm=True)
+        self.conv_post = conv1d(1024, 1, 3, padding=1, weight_norm=not sn,
+                                spectral_norm=sn)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         """x: ``[B, L]`` → (logits ``[B, N]``, feature maps)."""
@@ -97,10 +112,13 @@ class MultiPeriodDiscriminator(nn.Module):
     """1 scale + one period discriminator per period over (real, generated)
     pairs (reference ``models.py:364-386``)."""
 
-    def __init__(self, periods: Sequence[int] = (2, 3, 5, 7, 11)):
+    def __init__(self, periods: Sequence[int] = (2, 3, 5, 7, 11),
+                 use_spectral_norm: bool = False):
         super().__init__()
+        sn = use_spectral_norm
         self.discriminators = nn.ModuleList(
-            [DiscriminatorS()] + [DiscriminatorP(p) for p in periods]
+            [DiscriminatorS(sn)]
+            + [DiscriminatorP(p, use_spectral_norm=sn) for p in periods]
         )
 
     def forward(self, y: torch.Tensor, y_hat: torch.Tensor):

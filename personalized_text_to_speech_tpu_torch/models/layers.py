@@ -1,4 +1,5 @@
-"""NN building blocks: convs (incl. weight norm), channel LayerNorm, DDSConv,
+"""NN building blocks: convs (incl. weight and spectral norm), channel
+LayerNorm, DDSConv,
 WaveNet stack, HiFi-GAN residual blocks, conv-FFN.
 
 Counterpart of ``personalized_text_to_speech_tpu/models/layers.py``
@@ -11,18 +12,36 @@ and in ``utils/torch_compat.py``.  The JAX package adds 1e-12 under the
 square root of the norm (``layers.py:141-145``, ``:209-215``); torch's norm
 has no such term.  The term is below fp32 resolution for every weight these
 models hold (the smallest ‖v‖² is ~1e-3), so the two agree to rounding.
+
+Spectral norm (the discriminators' ``use_spectral_norm``, JAX
+``layers.py:49-100``) is a module of this file's own,
+:class:`SpectralNormConv1d`/:class:`SpectralNormConv2d`, not the legacy
+``torch.nn.utils.spectral_norm`` hook, for two reasons: the hook iterates
+whenever ``module.training`` is set, where the JAX package iterates only
+when the caller marks the ``spectral`` collection mutable (here the
+explicit :func:`power_iteration` switch, so ``.eval()``, which turns dropout
+off, leaves the iteration alone); and under CUDA's bf16 autocast the hook's
+``torch.mv`` would run in bf16, where JAX iterates on the fp32 weight.  The
+keys and the math are the hook's: the ``weight_orig`` parameter and the
+``weight_u``/``weight_v`` buffers over ``weight.reshape(C_out, -1)``; one
+iteration ``v = normalize(Wᵀu)``, ``u = normalize(W v)`` (eps 1e-12,
+without gradient), then ``σ = u·(W v)`` and ``W/σ``, all in fp32 with
+autocast off; ``u``/``v`` are drawn as the hook draws them, after the
+conv's own init.
 """
 
 from __future__ import annotations
 
+import contextlib
 import warnings
-from typing import Optional, Sequence, Tuple
+from typing import Iterator, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 LRELU_SLOPE = 0.1
+SPECTRAL_EPS = 1e-12
 
 
 def get_padding(kernel_size: int, dilation: int = 1) -> int:
@@ -37,6 +56,80 @@ def _weight_norm(module: nn.Module) -> nn.Module:
         return nn.utils.weight_norm(module)
 
 
+class _SpectralNorm:
+    """The spectral-norm half of :class:`SpectralNormConv1d` and
+    :class:`SpectralNormConv2d` (module docstring)."""
+
+    def _spectral_init(self) -> None:
+        weight = self._parameters.pop("weight")
+        self.weight_orig = nn.Parameter(weight.detach())
+        with torch.no_grad():
+            mat = weight.reshape(weight.shape[0], -1)
+            u = mat.new_empty(mat.shape[0]).normal_(0, 1)
+            v = mat.new_empty(mat.shape[1]).normal_(0, 1)
+        self.register_buffer("weight_u", F.normalize(u, dim=0, eps=SPECTRAL_EPS))
+        self.register_buffer("weight_v", F.normalize(v, dim=0, eps=SPECTRAL_EPS))
+        self.power_iteration = False
+
+    def spectral_weight(self) -> torch.Tensor:
+        """``weight_orig / σ``; first one power iteration, stored in the
+        buffers, when :func:`power_iteration` is on."""
+        w = self.weight_orig
+        with torch.autocast(device_type=w.device.type, enabled=False):
+            mat = w.float().reshape(w.shape[0], -1)
+            u, v = self.weight_u, self.weight_v
+            if self.power_iteration:
+                with torch.no_grad():
+                    v = F.normalize(torch.mv(mat.t(), u), dim=0, eps=SPECTRAL_EPS)
+                    u = F.normalize(torch.mv(mat, v), dim=0, eps=SPECTRAL_EPS)
+                    self.weight_u.copy_(u)
+                    self.weight_v.copy_(v)
+                # σ keeps these fresh tensors for its backward, so the next
+                # forward (fake after real) may update the buffers in place
+            sigma = torch.dot(u, torch.mv(mat, v))
+            return (w.float() / sigma).to(w.dtype)
+
+
+class SpectralNormConv1d(_SpectralNorm, nn.Conv1d):
+    """``nn.Conv1d`` whose weight is spectrally normalised (module
+    docstring); state-dict keys ``weight_orig``, ``weight_u``, ``weight_v``,
+    ``bias``."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._spectral_init()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, self.spectral_weight(), self.bias)
+
+
+class SpectralNormConv2d(_SpectralNorm, nn.Conv2d):
+    """``nn.Conv2d`` counterpart of :class:`SpectralNormConv1d`."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._spectral_init()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, self.spectral_weight(), self.bias)
+
+
+@contextlib.contextmanager
+def power_iteration(module: nn.Module) -> Iterator[None]:
+    """Within the block, every spectral-norm conv of ``module`` runs one
+    power iteration per forward, as the JAX package's apply with the
+    ``spectral`` collection mutable does; outside it the estimates are
+    frozen, whatever ``module.training`` says."""
+    convs = [m for m in module.modules() if isinstance(m, _SpectralNorm)]
+    for m in convs:
+        m.power_iteration = True
+    try:
+        yield
+    finally:
+        for m in convs:
+            m.power_iteration = False
+
+
 def conv1d(
     in_channels: int,
     out_channels: int,
@@ -48,12 +141,18 @@ def conv1d(
     weight_norm: bool = False,
     init_std: Optional[float] = None,
     stride: int = 1,
+    spectral_norm: bool = False,
 ) -> nn.Conv1d:
     """``nn.Conv1d`` with torch-style symmetric "same" padding by default.
     ``init_std`` draws the weight from N(0, std) (0 → zeros), as the JAX
-    package's ``kernel_init`` does for the HiFi-GAN and coupling layers."""
+    package's ``kernel_init`` does for the HiFi-GAN and coupling layers.
+    ``spectral_norm`` gives a :class:`SpectralNormConv1d` (default init)."""
     if padding is None:
         padding = get_padding(kernel_size, dilation)
+    if spectral_norm:
+        return SpectralNormConv1d(in_channels, out_channels, kernel_size,
+                                  stride=stride, dilation=dilation,
+                                  groups=groups, padding=padding, bias=bias)
     conv = nn.Conv1d(in_channels, out_channels, kernel_size, stride=stride,
                      dilation=dilation, groups=groups, padding=padding, bias=bias)
     if init_std == 0.0:
@@ -69,10 +168,15 @@ def conv2d(
     kernel_size: Tuple[int, int],
     stride: Tuple[int, int] = (1, 1),
     padding: Tuple[int, int] = (0, 0),
+    spectral_norm: bool = False,
 ) -> nn.Conv2d:
-    """Weight-normed ``nn.Conv2d`` of the period discriminators, the
-    counterpart of the JAX package's ``Conv2d`` (``layers.py:242-310``) with
-    ``weight_norm=True``: its ``weight_g`` is ``[C_out, 1, 1, 1]``."""
+    """``nn.Conv2d`` of the period discriminators, the counterpart of the
+    JAX package's ``Conv2d`` (``layers.py:242-310``): weight-normed (its
+    ``weight_g`` is ``[C_out, 1, 1, 1]``), or a :class:`SpectralNormConv2d`
+    with ``spectral_norm``."""
+    if spectral_norm:
+        return SpectralNormConv2d(in_channels, out_channels, kernel_size,
+                                  stride=stride, padding=padding)
     return _weight_norm(nn.Conv2d(in_channels, out_channels, kernel_size,
                                   stride=stride, padding=padding))
 

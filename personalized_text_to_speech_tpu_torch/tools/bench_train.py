@@ -43,14 +43,16 @@ WARMUP = 2
 
 
 def build_step(batch, frames, tokens=128, dtype="bfloat16", seed=0,
-               device="cuda", hps=None):
-    """The fused GAN train step on a synthetic batch drawn with numpy from
-    ``seed``, on ``device``, for ``hps`` (default: the full width).
+               device="cuda", hps=None, accum_steps=1, remat="none"):
+    """The GAN train step (fused, or as ``accum_steps`` and ``remat`` say)
+    on a synthetic batch drawn with numpy from ``seed``, on ``device``, for
+    ``hps`` (default: the full width).
 
     Returns ``(step_once, state)``: ``state`` is ``(g_state, d_state,
     batch, generator)`` and ``step_once(state)`` runs one update (the
     states change in place) and returns ``(state, metrics)``.  Shared with
-    the per-op profile (``tools/profile_ops.py``)."""
+    the per-op profile (``tools/profile_ops.py``) and the memory audit
+    (``tools/bench_mem.py``)."""
     from personalized_text_to_speech_tpu_torch.models.discriminator import (
         MultiPeriodDiscriminator,
     )
@@ -87,7 +89,7 @@ def build_step(batch, frames, tokens=128, dtype="bfloat16", seed=0,
     }, device)
     generator = torch.Generator(device=device)
     generator.manual_seed(seed + 1)
-    step = make_train_step(hps)
+    step = make_train_step(hps, accum_steps=accum_steps, remat=remat)
 
     def step_once(state):
         g_state, d_state, b, gen = state

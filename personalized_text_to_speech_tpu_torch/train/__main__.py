@@ -11,7 +11,9 @@ apply on one card (reference ``finetune_speaker_v2.py``, ``utils.py:307-320``):
 from the newest checkpoint, ``--preserved`` how many checkpoints to keep.
 ``--smoke`` trains a small model for a few steps on a synthetic dataset
 written into the model directory (the same set as ``tools/train.py --smoke``).
-Runs on the card; ``--device cpu`` asks for the CPU.
+Runs on the card; ``--device cpu`` asks for the CPU.  The config's
+``model.use_spectral_norm``, ``train.accum_steps`` and ``train.remat`` act
+as in the JAX package's run (:class:`~.loop.Trainer`).
 """
 
 from __future__ import annotations

@@ -18,8 +18,14 @@ Runs on the card unless the caller asks for the CPU (``device="cpu"``);
 without a card the default raises.  Metrics stay on the device and are read
 to the host only at ``log_interval``, as ``loop.py:299-300`` does.
 
+The config's ``model.use_spectral_norm`` builds the spectral-norm
+discriminator, whose ``weight_u``/``weight_v`` ride in its state dict
+(checkpoints, ``resume``, the exported ``D_latest.pth`` and a pretrained
+``D_*.pth`` alike); ``train.accum_steps`` and ``train.remat`` go to the step
+(:mod:`.step`), as JAX ``loop.py:203-219``.
+
 Not ported here: the mesh (data, tensor and sequence parallelism become DDP
-later) and the spectral-norm discriminator (ROADMAP).
+later).
 """
 
 from __future__ import annotations
@@ -75,10 +81,6 @@ class Trainer:
                 "Trainer: no CUDA device is available; pass device='cpu' to "
                 "train on the CPU"
             )
-        if hps.model.get("use_spectral_norm", False):
-            raise NotImplementedError(
-                "the spectral-norm discriminator is not ported yet"
-            )
         self.hps = hps
         self.model_dir = model_dir
         os.makedirs(model_dir, exist_ok=True)
@@ -108,7 +110,8 @@ class Trainer:
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(hps.train.seed)
             g = SynthesizerTrn.from_hparams(hps)
-            d = MultiPeriodDiscriminator()
+            d = MultiPeriodDiscriminator(
+                use_spectral_norm=hps.model.get("use_spectral_norm", False))
         for path, net, drop in ((pretrained_g, g, drop_speaker_embed),
                                 (pretrained_d, d, False)):
             if path:
@@ -120,7 +123,9 @@ class Trainer:
                                           self.steps_per_epoch)
         self.d_state = create_train_state(d.to(self.device), hps,
                                           self.steps_per_epoch)
-        self.step_fn = make_train_step(hps)
+        self.step_fn = make_train_step(
+            hps, accum_steps=int(hps.train.get("accum_steps", 1)),
+            remat=str(hps.train.get("remat", "none")))
         # the step's draws; dropout masks come from torch's default generator
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(hps.train.seed + 17)

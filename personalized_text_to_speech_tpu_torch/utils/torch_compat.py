@@ -22,9 +22,12 @@ in as a nested dict of numpy arrays (``{"params": {...}}`` or the inner tree).
   them (:func:`load_partial_state_dict`): keys the file lacks keep their
   fresh values and are logged, and the speaker table loads row by row
   whatever the two speaker counts.
-
-The spectral-norm discriminator's ``weight_orig/_u/_v`` buffers are not
-carried: that variant is not ported.
+* The spectral-norm discriminator: the ``w_orig`` param is
+  ``weight_orig`` (a kernel's layout), and the ``spectral`` collection's
+  ``u``/``v`` leaves are the ``weight_u``/``weight_v`` buffers, already in
+  torch's ``weight.reshape(C_out, -1)`` column order (JAX ``:93-106``).
+  The other way is the port's own state dict: its keys are the reference's,
+  so a port ``D_*.pth`` loads into the JAX package's ``torch_to_flax``.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ _PERIOD_INDEX = {2: 1, 3: 2, 5: 3, 7: 4, 11: 5}
 
 _LEAF_NAMES = {
     "kernel": "weight",
+    "w_orig": "weight_orig",
     "v": "weight_v",
     "g": "weight_g",
     "emb": "emb.weight",
@@ -90,11 +94,11 @@ def _from_flax_tensor(parts: Tuple[str, ...], a: np.ndarray,
     """Layout transform flax → torch for one leaf; ``weight_rank`` is the
     rank of the weight a ``g`` belongs to."""
     leaf = parts[-1]
-    if leaf in ("kernel", "v") and a.ndim == 3:
+    if leaf in ("kernel", "v", "w_orig") and a.ndim == 3:
         if any(p.startswith("ups_") for p in parts):
             return a.transpose(1, 2, 0)  # [k,in,out] → [in,out,k]
         return a.transpose(2, 1, 0)  # [k,in,out] → [out,in,k]
-    if leaf in ("kernel", "v") and a.ndim == 4:
+    if leaf in ("kernel", "v", "w_orig") and a.ndim == 4:
         return a.transpose(3, 2, 0, 1)  # [kh,kw,in,out] → [out,in,kh,kw]
     if leaf == "g":
         return a.reshape((-1,) + (1,) * (weight_rank - 1))
@@ -111,9 +115,15 @@ def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()):
             yield prefix + (k,), v
 
 
+def _tensor(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, copy=True))
+
+
 def flax_to_torch(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX params (nested dict of arrays) → this port's state dict.  Works
-    for any tree of the params' structure, gradients among them."""
+    for any tree of the params' structure, gradients among them; a
+    ``spectral`` collection beside ``params`` becomes the
+    ``weight_u``/``weight_v`` buffers."""
     tree = params["params"] if "params" in params else params
     flat = dict(_flatten(tree))
     out = {}
@@ -121,7 +131,11 @@ def flax_to_torch(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         v = flat.get(parts[:-1] + ("v",))
         rank = np.ndim(v) if v is not None else 3
         a = _from_flax_tensor(parts, np.asarray(value), rank)
-        out[_module_path_to_torch(parts)] = torch.from_numpy(np.array(a, copy=True))
+        out[_module_path_to_torch(parts)] = _tensor(a)
+    for parts, value in _flatten(params.get("spectral", {})):
+        # the module's path, then weight_u / weight_v
+        prefix = _module_path_to_torch(parts[:-1] + ("bias",))[: -len("bias")]
+        out[f"{prefix}weight_{parts[-1]}"] = _tensor(np.asarray(value))
     return out
 
 

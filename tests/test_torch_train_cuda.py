@@ -35,6 +35,7 @@ from personalized_text_to_speech_tpu_torch.config import tiny_model_config
 from personalized_text_to_speech_tpu_torch.models.discriminator import (
     MultiPeriodDiscriminator,
 )
+from personalized_text_to_speech_tpu_torch.models.layers import power_iteration
 from personalized_text_to_speech_tpu_torch.models.synthesizer import SynthesizerTrn
 from personalized_text_to_speech_tpu_torch.ops import mas
 from personalized_text_to_speech_tpu_torch.ops import spectrogram as spec_ops
@@ -139,3 +140,33 @@ def test_spectrogram_on_card_matches_cpu(cuda_device, n_fft, hop, n_mels):
     assert got_mel.dtype == torch.float32
     want_mel = spec_ops.spec_to_mel(want, cfg)
     assert (got_mel.cpu() - want_mel).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16_autocast"])
+def test_power_iteration_on_card_is_fp32(cuda_device, bf16):
+    """The spectral-norm discriminator's power iteration under CUDA's bf16
+    autocast (``bf16_run``), which lowers ``torch.mv``: three iterations on
+    the card give the CPU's fp32 ``u``/``v`` to 1e-6 (bf16 keeps 8 bits of
+    mantissa, ~4e-3 of a value)."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(3)
+        d = MultiPeriodDiscriminator(use_spectral_norm=True)
+    weights = d.state_dict()
+    rng = np.random.default_rng(3)
+    y, y_hat = (torch.from_numpy((0.3 * rng.normal(size=(2, 2048))).astype(
+        np.float32)) for _ in range(2))
+    out = {}
+    for dev, autocast in (("cpu", False), ("cuda", bf16)):
+        net = MultiPeriodDiscriminator(use_spectral_norm=True)
+        net.load_state_dict(weights)
+        net.to(dev)
+        for _ in range(3):
+            with torch.no_grad(), power_iteration(net), torch.autocast(
+                    device_type=dev, dtype=torch.bfloat16, enabled=autocast):
+                net(y.to(dev), y_hat.to(dev))
+        out[dev] = {n: b.cpu() for n, b in net.named_buffers()}
+    for n, want in out["cpu"].items():
+        got = out["cuda"][n]
+        assert got.dtype == torch.float32, n
+        assert (got - want).abs().max().item() <= 1e-6 * want.norm().item(), n
