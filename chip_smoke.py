@@ -114,6 +114,26 @@ goes wrong:
     (d) ``tools.bench_mem`` for ``1:none 2:none 4:none 1:dots 1:full
     4:full`` in fp32 and ``1:none 4:none`` in bf16, each row printed, every
     field finite, fp32 ``4:none`` and ``1:full`` peaking below ``1:none``.
+15. data-parallel fine-tuning at full width, TF32 off, every launch counter
+    set to 0 first, every MAS call held to the plain MAS on its own scores
+    on the process that made it: (a) a world-size-1 NCCL group
+    (``init_distributed`` at 127.0.0.1) and the ``Trainer`` in it on a new
+    copy of phase 7's 32-clip set (B=16, 400 frames): ``fit`` for 2 steps
+    and 3 timed steps (median against phase 7's), one MAS launch a step;
+    ``allreduce_grads`` of G and of D timed on the card; one step from
+    fixed weights and draws in the group equal to the same step with no
+    group bit for bit (cuDNN deterministic, the step with no group run
+    twice first to show it repeats itself); (b) two ranks on the one card over gloo
+    (``parallel.dryrun``'s ranks, subprocesses with a time limit, the MAS
+    library built once before them), B=8 each, holding the same 16 rows and
+    draws as one process at B=16, dropout off, ``use_spectral_norm`` on:
+    every loss within 1e-4 of the single process's, each network's gradient
+    within 1e-3 of its norm, the same gradients, parameters (a checksum of
+    each tensor) and ``u``/``v`` on both ranks after the update, one MAS
+    launch a rank; (c) ``python -m
+    personalized_text_to_speech_tpu_torch.parallel.dryrun --nproc 2
+    --device cuda --full-width`` (16 rows of up to 400 frames and 192
+    tokens, 8 a rank) with a time limit.
 
 The last lines are a line of MAS launches per path, a ``{"kernels": [...]}``
 JSON line, the ``nvidia-smi`` name/power-limit line, and
@@ -2249,6 +2269,245 @@ def rest_of_train_step(kernels, weight_norm_ms: dict) -> dict:
     return result
 
 
+# --------------------------------------------------------------------------
+# data-parallel fine-tuning: a world-size-1 NCCL group through the Trainer,
+# two gloo ranks on the one card, and the dry run
+# --------------------------------------------------------------------------
+
+# timed Trainer steps of the world-size-1 run, after its fit
+DP_TIMED = 3
+# seconds the two gloo ranks, and the dry run with its ranks, may take
+DP_RANKS_LIMIT_S = 240
+DP_DRYRUN_LIMIT_S = 300
+
+
+def dp_job(filelist: str, spectral: bool) -> dict:
+    """A dry-run job at full width: weights from a seed, 16 rows of the
+    synthetic set (400 frames, 192 tokens) and the step's draws, made on
+    the host."""
+    from personalized_text_to_speech_tpu_torch.data.dataset import (
+        BucketBatcher,
+        DatasetConfig,
+        TextAudioSpeakerDataset,
+    )
+    from personalized_text_to_speech_tpu_torch.models.discriminator import (
+        MultiPeriodDiscriminator,
+    )
+    from personalized_text_to_speech_tpu_torch.models.synthesizer import (
+        SynthesizerTrn,
+    )
+    from personalized_text_to_speech_tpu_torch.parallel import dryrun
+    from personalized_text_to_speech_tpu_torch.train.step import (
+        Batch,
+        draw_samples,
+    )
+
+    hps = train_hps(filelist, bf16=False)
+    hps.model.use_spectral_norm = spectral
+    hop = hps.data.hop_length
+    ds = TextAudioSpeakerDataset(filelist, DatasetConfig.from_hparams(hps),
+                                 hps.symbols, seed=hps.train.seed)
+    arrays = next(iter(BucketBatcher(ds, 16, seed=0)))
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(66)
+        g = SynthesizerTrn.from_hparams(hps)
+        d = MultiPeriodDiscriminator(use_spectral_norm=spectral)
+    samples = draw_samples(Batch.from_numpy(arrays, "cpu"), hop,
+                           hps.train.segment_size // hop,
+                           hps.model.inter_channels, True,
+                           torch.Generator().manual_seed(67))
+    return dryrun.make_job(hps, g.state_dict(), d.state_dict(), arrays,
+                           samples, d_kwargs={"use_spectral_norm": spectral})
+
+
+def run_limited(cmd, limit_s: float) -> str:
+    """``cmd`` in a session of its own; after ``limit_s`` seconds the whole
+    session (its ranks too) is killed and the run fails."""
+    import signal
+
+    proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out = proc.communicate(timeout=limit_s)[0]
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out = proc.communicate()[0]
+        log(out[-4000:])
+        raise AssertionError(f"{cmd[2:]} ran past {limit_s} s and was killed")
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    if proc.returncode != 0:
+        log(out[-4000:])
+        raise AssertionError(f"{cmd[2:]} exited with {proc.returncode}")
+    return out
+
+
+def dp_world_one(filelist: str, kernels, fp32_step_ms: float,
+                 smi: str) -> dict:
+    """Phase 15 (a): the Trainer in a world-size-1 NCCL group;
+    ``allreduce_grads`` timed; one step in the group bit for bit the step
+    with no group."""
+    import torch.distributed as dist
+
+    from personalized_text_to_speech_tpu_torch import parallel
+    from personalized_text_to_speech_tpu_torch.parallel import dryrun
+    from personalized_text_to_speech_tpu_torch.train.loop import Trainer
+    from personalized_text_to_speech_tpu_torch.utils import runtime
+
+    job = dp_job(filelist, spectral=False)
+
+    def one_step():
+        saved = (torch.backends.cudnn.deterministic,
+                 torch.backends.cudnn.benchmark)
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        try:
+            return dryrun.run_step(job, TRAIN_DEVICE)
+        finally:
+            (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark) = saved
+
+    # the step with no group, twice (it must repeat itself)
+    runs = [one_step(), one_step()]
+    runtime.init_distributed(f"127.0.0.1:{dryrun.free_port()}", 1, 0)
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"backend {dist.get_backend()}, not nccl")
+        result = {"backend": "nccl",
+                  "world": dist.get_world_size()}
+        with tempfile.TemporaryDirectory() as tmp:
+            hps = train_hps(filelist, bf16=False)
+            trainer = Trainer(hps, str(Path(tmp) / "run"), device=TRAIN_DEVICE)
+            if trainer.world != 1 or \
+                    trainer.device != torch.device("cuda", 0):
+                raise AssertionError("the Trainer did not take the group")
+            launches0 = kernels["mas"].launches
+            with MasSpy() as spy:
+                t0 = time.perf_counter()
+                trainer.fit(max_epochs=1)
+                fit_s = time.perf_counter() - t0
+                batches = list(trainer.batcher)
+                metrics, times = [], []
+                for i in range(DP_TIMED):
+                    t0 = time.perf_counter()
+                    metrics.append(trainer.train_step(batches[i % len(batches)]))
+                    sync()
+                    times.append(time.perf_counter() - t0)
+            launches = kernels["mas"].launches - launches0
+            steps = trainer.global_step
+            if launches != steps or len(spy.calls) != steps:
+                raise AssertionError(f"world 1: {launches} MAS launches, "
+                                     f"{len(spy.calls)} calls in {steps} steps")
+            check_mas_calls(spy.calls)
+            del spy
+            for m in metrics:
+                bad = [k for k, v in m.items() if not torch.isfinite(v)]
+                if bad:
+                    raise AssertionError(f"world 1: non-finite {bad}")
+            g_mod, d_mod = trainer.g_state.module, trainer.d_state.module
+            ar_ms = {"g": cuda_time_ms(lambda: parallel.allreduce_grads(g_mod),
+                                       warmup=2, iters=10),
+                     "d": cuda_time_ms(lambda: parallel.allreduce_grads(d_mod),
+                                       warmup=2, iters=10)}
+            grad_mb = {net: sum(p.grad.numel() * p.grad.element_size()
+                                for p in mod.parameters() if p.grad is not None)
+                       / 2**20 for net, mod in (("g", g_mod), ("d", d_mod))}
+            median = statistics.median(times) * 1e3
+            result.update(
+                steps=steps, trainer_launches=launches, fit_s=fit_s,
+                step_ms={"median": median, "min": min(times) * 1e3,
+                         "max": max(times) * 1e3},
+                against_phase7=median / fp32_step_ms,
+                allreduce_grads_ms=ar_ms, grad_mb=grad_mb)
+            log(f"dp world 1 (nccl) on {smi}: fit {steps - DP_TIMED} steps in "
+                f"{fit_s:.2f} s, step median {median:.2f} ms against phase 7's "
+                f"{fp32_step_ms:.2f} ms ({median / fp32_step_ms:.3f}x); "
+                f"allreduce_grads G {ar_ms['g']:.4f} ms ({grad_mb['g']:.1f} MiB), "
+                f"D {ar_ms['d']:.4f} ms ({grad_mb['d']:.1f} MiB) on the card")
+            del trainer, metrics, g_mod, d_mod
+            torch.cuda.empty_cache()
+
+        # the same step in the group
+        runs.append(one_step())
+    finally:
+        dist.destroy_process_group()
+    plain = runs[0]
+    for label, got in (("no group again", runs[1]), ("in the group", runs[2])):
+        same = (got["metrics"] == plain["metrics"]
+                and got["checksums"] == plain["checksums"]
+                and all((v is None and got[net][n] is None)
+                        or torch.equal(got[net][n], v)
+                        for net in ("grads_g", "grads_d")
+                        for n, v in plain[net].items()))
+        if not same:
+            raise AssertionError(f"world 1: the step {label} differs from "
+                                 "the step with no group")
+    if any(r["mas_launches"] != 1 or r["mas_plain_equal"] is not True
+           for r in runs):
+        raise AssertionError("world 1: a step's MAS did not launch once "
+                             "or differs from the plain MAS")
+    result["bit_exact_step_launches"] = sum(r["mas_launches"] for r in runs)
+    log("dp world 1 (nccl): one step at B=16 in the group equals the step "
+        "with no group bit for bit (losses, gradients, updated parameters); "
+        "the step with no group repeats itself bit for bit")
+    return result
+
+
+def data_parallel(kernels, fp32_step_ms: float, smi: str) -> dict:
+    """Phase 15: (a) world-size-1 NCCL, (b) two gloo ranks on the card,
+    (c) the dry run."""
+    from personalized_text_to_speech_tpu_torch.config import load_hparams
+    from personalized_text_to_speech_tpu_torch.parallel import dryrun
+
+    t_phase = time.perf_counter()
+    for fn in kernels.values():
+        fn.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        data_hps = load_hparams(str(CONFIG))
+        (tmp / "data").mkdir()
+        make_train_set(tmp / "data", data_hps)
+        filelist = data_hps.data.training_files
+        result = {"world_one": dp_world_one(filelist, kernels, fp32_step_ms,
+                                            smi)}
+
+        launches0 = kernels["mas"].launches
+        job = dp_job(filelist, spectral=True)
+        two = dryrun.check_data_parallel(job, 2, TRAIN_DEVICE,
+                                         DP_RANKS_LIMIT_S, say=log)
+        two["reference_launches"] = kernels["mas"].launches - launches0
+        if two["mas_launches"] != [1, 1]:
+            raise AssertionError(f"gloo ranks: MAS launches {two['mas_launches']}")
+        del job
+        result["two_ranks"] = {k: v for k, v in two.items() if k != "ref_metrics"}
+        log("dp two gloo ranks on the card (B=8 each, spectral norm): "
+            + json.dumps(result["two_ranks"]))
+
+    out = run_limited([sys.executable, "-m",
+                       "personalized_text_to_speech_tpu_torch.parallel.dryrun",
+                       "--nproc", "2", "--device", "cuda", "--full-width"],
+                      DP_DRYRUN_LIMIT_S)
+    log(out.rstrip())
+    result["dryrun"] = json.loads(out.strip().splitlines()[-1])
+    result["launches"] = {
+        "dp world-1 nccl Trainer": result["world_one"]["trainer_launches"],
+        "dp world-1 nccl step vs no group": result["world_one"][
+            "bit_exact_step_launches"],
+        "dp gloo single-process reference": two["reference_launches"],
+        "dp gloo 2 ranks": sum(two["mas_launches"]),
+        "dp dryrun 2 ranks": sum(result["dryrun"]["mas_launches"]),
+    }
+    if kernels["mas"].launches == 0 or 0 in result["launches"].values():
+        raise AssertionError(f"data-parallel paths: {result['launches']}")
+    result["phase_s"] = time.perf_counter() - t_phase
+    log(f"data-parallel fine-tuning: {result['phase_s']:.2f} s; MAS launches "
+        + json.dumps(result["launches"]))
+    return result
+
+
 def main() -> int:
     phase("1 device")
     if not torch.cuda.is_available():
@@ -2412,6 +2671,11 @@ def main() -> int:
     rest_step = rest_of_train_step(
         kernels, {m: r["step_ms"]["median"] for m, r in train_results.items()})
 
+    phase("15 data-parallel fine-tuning at full width: world-size-1 NCCL "
+          "Trainer, two gloo ranks on the card, the dry run")
+    dp = data_parallel(kernels, train_results["fp32"]["step_ms"]["median"],
+                       smi)
+
     phase("summary")
     by_path = {"serve+forward": serve_launches["mas"],
                **{f"train {m}": r["launches"]["mas"]
@@ -2427,13 +2691,15 @@ def main() -> int:
                **{f"step k={k}": r["mas_launches"]
                   for k, r in rest_step["accum"].items()},
                **{f"bench_mem {dt}": n
-                  for dt, n in rest_step["bench_mem"]["launches"].items()}}
+                  for dt, n in rest_step["bench_mem"]["launches"].items()},
+               **dp["launches"]}
     log("launches per path " + json.dumps({
         "mas": by_path,
         "train steps": {**{m: r["steps"] for m, r in train_results.items()},
                         "fine-tune": scored["steps"],
                         **{f"spectral {m}": r["steps"]
-                           for m, r in rest_step["spectral"].items()}},
+                           for m, r in rest_step["spectral"].items()},
+                        "dp world-1 nccl": dp["world_one"]["steps"]},
     }))
     log(json.dumps({"kernels": [{
         "name": "mas",

@@ -6,10 +6,12 @@ the same JSON files (``configs/finetune_speaker.json`` and the rest, with the
 ``utils.py:296-434``) into the same :class:`HParams` tree.
 
 The optional ``tpu`` section keeps its name, because the JSON files share it
-with the JAX package.  The port reads only its bucket lists:
+with the JAX package.  The port reads its bucket lists and its mesh:
 
 ``tpu.text_buckets``   — text-length buckets the serving engine pads to.
 ``tpu.frame_buckets``  — spectrogram-frame buckets of the decode stage.
+``tpu.mesh``           — the data-parallel layout the ``Trainer`` checks
+                         against its process group (``parallel.create_mesh``).
 """
 
 from __future__ import annotations
@@ -74,7 +76,7 @@ class HParams:
 
 
 # Defaults for the ``tpu`` section (the name the shared JSON files use);
-# merged into any loaded config.  The port reads only the bucket lists.
+# merged into any loaded config.  The port reads the bucket lists and mesh.
 TPU_DEFAULTS: Dict[str, Any] = {
     "compute_dtype": "bfloat16",
     "mesh": {"data": -1},  # -1: use all devices on the data axis

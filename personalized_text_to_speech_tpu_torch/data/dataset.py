@@ -3,13 +3,13 @@
 The port's own copy of ``personalized_text_to_speech_tpu/data/dataset.py``
 (reference ``data_utils.py:16-276``): ``path|sid|text`` filelists, text-length
 filtering (1–190), spectrogram length estimated from the file size, and an
-epoch-seeded bucket sampler.  As in the JAX package, items carry only
+epoch-seeded, rank-sharded bucket sampler.  As in the JAX package, items carry only
 ``(text_ids, wav, sid)`` (the spectrogram is computed on the device inside the
 train step), and batches are padded to static bucket shapes: text to the next
 of ``text_pad_to``, audio to the bucket's upper frame boundary × hop.  Fixed
-shapes let cuDNN and cuBLAS reuse their plans from step to step.
-
-Not copied yet: rank sharding (it comes with data parallelism, ROADMAP).
+shapes let cuDNN and cuBLAS reuse their plans from step to step.  In a
+data-parallel run each process iterates its rank's shard: every rank has the
+same number of batches and takes the buckets in the same order.
 """
 
 from __future__ import annotations
@@ -106,9 +106,17 @@ class TextAudioSpeakerDataset:
 
 
 class BucketBatcher:
-    """Epoch-seeded, length-bucketed batch iterator (reference
+    """Epoch-seeded, length-bucketed, rank-sharded batch iterator (reference
     ``DistributedBucketSampler``, ``data_utils.py:170-276``) that pads every
-    batch to its bucket's static shapes."""
+    batch to its bucket's static shapes.
+
+    Every bucket is padded to a multiple of ``shard_count × batch_size``
+    (its own ids repeated), and after the epoch's shuffle shard
+    ``shard_index`` takes ids ``shard_index::shard_count``: each shard holds
+    the same number of batches of each bucket, and the final shuffle of the
+    batches, seeded by the epoch alone, orders the buckets alike on every
+    rank.  A rank that ran one step more than the others would wait in its
+    collectives for ever."""
 
     def __init__(
         self,
@@ -116,13 +124,20 @@ class BucketBatcher:
         batch_size: int,
         boundaries: Sequence[int] = (32, 300, 400, 500, 600, 700, 800, 900, 1000),
         text_pad_to: Sequence[int] = (64, 128, 192, 256, 384),
+        shard_index: int = 0,
+        shard_count: int = 1,
         shuffle: bool = True,
         seed: int = 1234,
     ):
+        if not 0 <= shard_index < shard_count:
+            raise ValueError(
+                f"shard_index {shard_index} outside shard_count {shard_count}")
         self.dataset = dataset
         self.batch_size = batch_size
         self.boundaries = list(boundaries)
         self.text_pad_to = list(text_pad_to)
+        self.shard_index = shard_index
+        self.shard_count = shard_count
         self.shuffle = shuffle
         self.seed = seed
         self.epoch = 0
@@ -137,8 +152,9 @@ class BucketBatcher:
             if not self.buckets[i]:
                 self.buckets.pop(i)
                 self.boundaries.pop(i + 1)
+        total = shard_count * batch_size
         self.num_samples_per_bucket = [
-            len(bucket) + (batch_size - len(bucket) % batch_size) % batch_size
+            len(bucket) + (total - len(bucket) % total) % total
             for bucket in self.buckets
         ]
 
@@ -152,7 +168,8 @@ class BucketBatcher:
         self.epoch = epoch
 
     def __len__(self) -> int:
-        return sum(self.num_samples_per_bucket) // self.batch_size
+        return sum(self.num_samples_per_bucket) // (
+            self.shard_count * self.batch_size)
 
     def _text_cap(self, n: int) -> int:
         for b in self.text_pad_to:
@@ -170,6 +187,7 @@ class BucketBatcher:
             rem = self.num_samples_per_bucket[bi] - len(bucket)
             if rem > 0:
                 ids = ids + (ids * (rem // len(bucket))) + ids[: rem % len(bucket)]
+            ids = ids[self.shard_index :: self.shard_count]
             for j in range(len(ids) // self.batch_size):
                 chunk = ids[j * self.batch_size : (j + 1) * self.batch_size]
                 batches.append((bi, [bucket[k] for k in chunk]))

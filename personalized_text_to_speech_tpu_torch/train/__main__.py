@@ -1,5 +1,5 @@
-"""Fine-tuning CLI of the port, with the flags of ``tools/train.py`` that
-apply on one card (reference ``finetune_speaker_v2.py``, ``utils.py:307-320``):
+"""Fine-tuning CLI of the port, with the flags of ``tools/train.py``
+(reference ``finetune_speaker_v2.py``, ``utils.py:307-320``):
 
     python -m personalized_text_to_speech_tpu_torch.train \\
         -c configs/modified_finetune_speaker.json -m OUT_MODEL -n 100 \\
@@ -14,6 +14,19 @@ written into the model directory (the same set as ``tools/train.py --smoke``).
 Runs on the card; ``--device cpu`` asks for the CPU.  The config's
 ``model.use_spectral_norm``, ``train.accum_steps`` and ``train.remat`` act
 as in the JAX package's run (:class:`~.loop.Trainer`).
+
+Data parallelism, one process per device: under ``torchrun`` (which sets
+``WORLD_SIZE``), or with ``--distributed``, each process joins the group
+through ``env://``; ``--coordinator host:port --num_processes N
+--process_id R`` joins it at that address instead.  The backend is NCCL on
+the card and gloo on the CPU.  On a machine with N cards:
+
+    torchrun --nproc_per_node N -m personalized_text_to_speech_tpu_torch.train \\
+        -c configs/modified_finetune_speaker.json -m OUT_MODEL
+
+and on the CPU ``python -m torch.distributed.run --nproc_per_node 2 -m
+personalized_text_to_speech_tpu_torch.train ... --device cpu``.
+``--no-mesh`` ignores ``tpu.mesh`` and trains on one process.
 """
 
 from __future__ import annotations
@@ -32,9 +45,17 @@ def str2bool(v) -> bool:
 
 
 def make_smoke_dataset(directory: str, hps) -> None:
-    """Write 8 synthetic clips and their filelist; point ``hps`` at it."""
+    """Write 8 synthetic clips and their filelist (rank 0 of a
+    data-parallel run; the others wait); point ``hps`` at it."""
+    from personalized_text_to_speech_tpu_torch import parallel
     from personalized_text_to_speech_tpu_torch.data.audio import save_wav
 
+    filelist = os.path.join(directory, "smoke_filelist.txt")
+    hps.data.training_files = filelist
+    hps.data.validation_files = filelist
+    if not parallel.is_primary():
+        parallel.barrier()
+        return
     os.makedirs(directory, exist_ok=True)
     sr = hps.data.sampling_rate
     rng = np.random.default_rng(0)
@@ -49,11 +70,9 @@ def make_smoke_dataset(directory: str, hps) -> None:
         path = os.path.join(directory, f"smoke_{i}.wav")
         save_wav(path, wav, sr)
         lines.append(f"{path}|{i % 2}|{texts[i % len(texts)]}")
-    filelist = os.path.join(directory, "smoke_filelist.txt")
     with open(filelist, "w", encoding="utf-8") as f:
         f.write("\n".join(lines) + "\n")
-    hps.data.training_files = filelist
-    hps.data.validation_files = filelist
+    parallel.barrier()
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
@@ -77,8 +96,39 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     parser.add_argument("--smoke-epochs", type=int, default=1,
                         help="epochs for --smoke")
     parser.add_argument("--device", type=str, default="cuda")
+    parser.add_argument("--no-mesh", action="store_true",
+                        help="ignore tpu.mesh and train on one process")
+    parser.add_argument("--coordinator", type=str, default=None,
+                        help="rendezvous address host:port of a "
+                        "data-parallel run")
+    parser.add_argument("--num_processes", type=int, default=None)
+    parser.add_argument("--process_id", type=int, default=None)
+    parser.add_argument("--distributed", action="store_true",
+                        help="join the process group through env:// "
+                        "(implied under torchrun)")
     args = parser.parse_args(argv)
 
+    import torch.distributed as dist
+
+    from personalized_text_to_speech_tpu_torch.utils import runtime
+
+    distributed = (args.distributed or args.coordinator is not None
+                   or "WORLD_SIZE" in os.environ)
+    if distributed:
+        runtime.init_distributed(
+            coordinator_address=args.coordinator,
+            num_processes=args.num_processes, process_id=args.process_id,
+            backend="gloo" if args.device == "cpu" else "nccl")
+    try:
+        return _train(args)
+    finally:
+        # also on a failure: this rank's peers then fail in their next
+        # collective instead of waiting for the timeout
+        if distributed:
+            dist.destroy_process_group()
+
+
+def _train(args) -> int:
     from personalized_text_to_speech_tpu_torch.config import (
         default_model_config,
         load_hparams,
@@ -108,11 +158,13 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                       and os.path.exists(args.pretrained_d) else None),
         drop_speaker_embed=args.drop_speaker_embed,
         device=args.device,
+        use_mesh=not args.no_mesh,
     )
     if args.cont:
         trainer.resume()
     trainer.fit(args.max_epochs)
-    print(f"training done at step {trainer.global_step}")
+    print(f"rank {trainer.rank} of {trainer.world}: training done at step "
+          f"{trainer.global_step}", flush=True)
     return 0
 
 

@@ -2,7 +2,7 @@
 checkpoints.
 
 Counterpart of ``personalized_text_to_speech_tpu/train/loop.py`` (reference
-``finetune_speaker_v2.py:46-310``) on one device: a filelist of wav files →
+``finetune_speaker_v2.py:46-310``) on one device per process: a filelist of wav files →
 bucketed batches (a background thread decodes the next ones) → the fused GAN
 step of :mod:`.step` → scalars at ``log_interval`` → at step 0 and every
 ``eval_interval``, :meth:`Trainer.evaluate` (one validation utterance
@@ -24,8 +24,20 @@ discriminator, whose ``weight_u``/``weight_v`` ride in its state dict
 ``D_*.pth`` alike); ``train.accum_steps`` and ``train.remat`` go to the step
 (:mod:`.step`), as JAX ``loop.py:203-219``.
 
-Not ported here: the mesh (data, tensor and sequence parallelism become DDP
-later).
+Data parallelism (JAX ``loop.py:64-101,285-293``): when the caller has
+joined a process group (:func:`~..utils.runtime.init_distributed`), the
+Trainer reads ``tpu.mesh`` (:func:`~..parallel.create_mesh`: ``data`` is the
+world size, a ``model`` axis above 1 raises), takes the card ``LOCAL_RANK``,
+iterates its rank's shard of the batches (``steps_per_epoch`` is the
+per-rank count), broadcasts rank 0's weights after the init, the pretrained
+load and ``resume``, and its step's losses and gradients are the global
+batch's (:mod:`.step`).  The step's draws and the dropout masks
+come from generators seeded ``seed + SEED_OFFSET·rank`` (rank 0 draws what
+one process draws).  Only rank 0 writes ``config.json``, ``train.log``,
+TensorBoard, ``eval/``, the checkpoints and the exported ``.pth``; a barrier
+follows each ``save`` and ``evaluate``.  A rank whose step raises re-raises
+(rank 0 first writes its emergency checkpoint, with no barrier); its peers
+then fail in their next collective, at the latest at the group's timeout.
 """
 
 from __future__ import annotations
@@ -37,6 +49,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from personalized_text_to_speech_tpu_torch import parallel
 from personalized_text_to_speech_tpu_torch.config import HParams, save_hparams
 from personalized_text_to_speech_tpu_torch.data.dataset import (
     BucketBatcher,
@@ -56,6 +69,7 @@ from personalized_text_to_speech_tpu_torch.ops.spectrogram import (
 from personalized_text_to_speech_tpu_torch.train.state import create_train_state
 from personalized_text_to_speech_tpu_torch.train.step import (
     Batch,
+    _default_generator,
     make_train_step,
     uses_bf16,
 )
@@ -63,6 +77,10 @@ from personalized_text_to_speech_tpu_torch.utils import checkpoint as ckpt
 from personalized_text_to_speech_tpu_torch.utils import logging_utils
 from personalized_text_to_speech_tpu_torch.utils import torch_compat as tc
 from personalized_text_to_speech_tpu_torch.utils.profiling import check_git_hash
+
+# rank r of a data-parallel run seeds its draws and dropout masks with
+# seed + SEED_OFFSET·r
+SEED_OFFSET = 1000
 
 
 class Trainer:
@@ -74,22 +92,39 @@ class Trainer:
         pretrained_d: Optional[str] = None,
         drop_speaker_embed: bool = False,
         device: str = "cuda",
+        use_mesh: bool = True,
     ):
+        self.rank, self.world = parallel.rank(), parallel.world_size()
+        self.is_primary = self.rank == 0
+        if use_mesh:
+            parallel.create_mesh(dict(hps.tpu.mesh.items()))  # raises if unmet
+        elif self.world > 1:
+            raise ValueError(
+                f"use_mesh=False trains on one process; this group has "
+                f"{self.world}")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "Trainer: no CUDA device is available; pass device='cpu' to "
                 "train on the CPU"
             )
+        if self.device.type == "cuda" and self.device.index is None \
+                and torch.distributed.is_initialized():
+            self.device = torch.device(
+                "cuda", parallel.local_rank() % torch.cuda.device_count())
         self.hps = hps
         self.model_dir = model_dir
         os.makedirs(model_dir, exist_ok=True)
-        save_hparams(hps, os.path.join(model_dir, "config.json"))
-        self.logger = logging_utils.get_logger(model_dir)
-        check_git_hash(model_dir)
-        self.writer = logging_utils.SummaryWriter(model_dir)
-        self.writer_eval = logging_utils.SummaryWriter(
-            os.path.join(model_dir, "eval"))
+        if self.is_primary:
+            save_hparams(hps, os.path.join(model_dir, "config.json"))
+            self.logger = logging_utils.get_logger(model_dir)
+            check_git_hash(model_dir)
+            self.writer = logging_utils.SummaryWriter(model_dir)
+            self.writer_eval = logging_utils.SummaryWriter(
+                os.path.join(model_dir, "eval"))
+        else:
+            self.logger = logging_utils.get_logger(model_dir, filename=None)
+            self.writer = self.writer_eval = None
         self.mel_cfg = MelConfig.from_hparams(hps)
 
         # data ---------------------------------------------------------
@@ -103,6 +138,8 @@ class Trainer:
             if os.path.exists(hps.data.validation_files) else None
         )
         self.batcher = BucketBatcher(self.train_set, hps.train.batch_size,
+                                     shard_index=self.rank,
+                                     shard_count=self.world,
                                      seed=hps.train.seed)
         self.steps_per_epoch = max(len(self.batcher), 1)
 
@@ -119,16 +156,21 @@ class Trainer:
                 tc.load_partial_state_dict(net, state, drop_speaker_embed=drop)
                 self.logger.info("loaded pretrained %s from %s",
                                  type(net).__name__, path)
-        self.g_state = create_train_state(g.to(self.device), hps,
-                                          self.steps_per_epoch)
-        self.d_state = create_train_state(d.to(self.device), hps,
-                                          self.steps_per_epoch)
+        g.to(self.device)
+        d.to(self.device)
+        parallel.broadcast_module(g)
+        parallel.broadcast_module(d)
+        self.g_state = create_train_state(g, hps, self.steps_per_epoch)
+        self.d_state = create_train_state(d, hps, self.steps_per_epoch)
         self.step_fn = make_train_step(
             hps, accum_steps=int(hps.train.get("accum_steps", 1)),
             remat=str(hps.train.get("remat", "none")))
-        # the step's draws; dropout masks come from torch's default generator
+        # the step's draws, and the device's default generator, which the
+        # dropout masks come from
+        offset = SEED_OFFSET * self.rank
         self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(hps.train.seed + 17)
+        self.generator.manual_seed(hps.train.seed + 17 + offset)
+        _default_generator(self.device).manual_seed(hps.train.seed + offset)
         self.global_step = 0
         self.epoch = 1
 
@@ -140,13 +182,21 @@ class Trainer:
             return False
         self.global_step = step
         self.epoch = step // self.steps_per_epoch + 1
+        parallel.broadcast_module(self.g_state.module)
+        parallel.broadcast_module(self.d_state.module)
         self.logger.info("resumed at step %d (epoch %d)", step, self.epoch)
         return True
 
     def save(self) -> None:
-        ckpt.save_train_state(self._ckpt_dir(), self.global_step, self.g_state,
-                              self.d_state,
-                              preserved=int(self.hps.get("preserved", 4)))
+        """The full train state on rank 0, then a barrier."""
+        self._save_local()
+        parallel.barrier()
+
+    def _save_local(self) -> None:
+        if self.is_primary:
+            ckpt.save_train_state(self._ckpt_dir(), self.global_step,
+                                  self.g_state, self.d_state,
+                                  preserved=int(self.hps.get("preserved", 4)))
 
     def _ckpt_dir(self) -> str:
         return os.path.join(self.model_dir, "checkpoints")
@@ -155,7 +205,11 @@ class Trainer:
         """Write reference-layout ``G_latest.pth``/``D_latest.pth``, which
         ``TTSEngine(checkpoint_path=…)`` and a later fine-tune's
         ``--pretrained_g/--pretrained_d`` load (reference
-        ``finetune_speaker_v2.py:102-115``)."""
+        ``finetune_speaker_v2.py:102-115``); rank 0 writes them, then a
+        barrier."""
+        if not self.is_primary:
+            parallel.barrier()
+            return
         for name, state in (("G", self.g_state), ("D", self.d_state)):
             tc.save_torch_checkpoint(
                 state.module.state_dict(),
@@ -163,6 +217,7 @@ class Trainer:
                 iteration=self.epoch,
                 learning_rate=self.hps.train.learning_rate,
             )
+        parallel.barrier()
 
     # ------------------------------------------------------------------
     def train_step(self, batch_np: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
@@ -174,7 +229,7 @@ class Trainer:
         metrics = self.step_fn(self.g_state, self.d_state,
                                Batch.from_numpy(batch_np, self.device),
                                generator=self.generator)
-        if self.global_step % hps.train.log_interval == 0:
+        if self.global_step % hps.train.log_interval == 0 and self.is_primary:
             names = list(metrics)
             values = torch.stack([metrics[k].float() for k in names]).tolist()
             scalars = dict(zip(names, values))
@@ -230,7 +285,15 @@ class Trainer:
         as without the call; ``dp_noise`` ``[1, ≥t_bucket, 2]`` and
         ``prior_noise`` ``[1, ≥f_bucket, inter_channels]`` replace them
         (their first bucket's worth is used).  Returns the ``images`` and
-        ``audios`` summarized, or ``None`` with no utterance to take."""
+        ``audios`` summarized, or ``None`` with no utterance to take.
+
+        In a data-parallel run rank 0 evaluates and the others return
+        ``None``; a barrier follows."""
+        out = self._evaluate(dp_noise, prior_noise) if self.is_primary else None
+        parallel.barrier()
+        return out
+
+    def _evaluate(self, dp_noise, prior_noise):
         source = self.eval_set or self.train_set
         if len(source) == 0:
             return None
@@ -321,14 +384,15 @@ class Trainer:
                 self.epoch += 1
         except KeyboardInterrupt:
             self.logger.warning("interrupted - saving a checkpoint before exit")
-            self.save()
+            self._save_local()
             raise
         except Exception:
             # the reference loses all progress on a failure; here the full
-            # train state is kept, so --cont resumes where the run died
+            # train state is kept, so --cont resumes where the run died.  No
+            # barrier: the peers may be waiting in a collective of the step
             self.logger.exception("training step failed - saving an "
                                   "emergency checkpoint")
-            self.save()
+            self._save_local()
             raise
         self.save()
         self.export_reference_checkpoint()

@@ -61,6 +61,27 @@ follows the modules' mode, which the caller sets: the Trainer calls
 ``.train()``, the parity tests ``.eval()`` (JAX's ``deterministic=True``).
 The step's own draws (slice starts, posterior and duration noise) come from
 the ``torch.Generator`` it is given, or are injected as :class:`Samples`.
+
+Data parallelism: the step runs on this process's rows of a global batch
+across the group of :mod:`..parallel` (W ranks, equal batch sizes; W = 1
+without a group) and computes the global batch's losses and gradients, as
+the JAX package's GSPMD step does (not DDP's mean of per-rank means).  Each
+rank is weighted as one microbatch of the global batch, the weighting of
+``accum_steps``: the batch-mean terms (D loss, adversarial, feature and
+mel) × 1/W, the duration loss × Σx_mask_rank / Σx_mask_global and KL ×
+Σy_mask_rank / Σy_mask_global, the global sums from one all-reduce of
+[Σx, Σy] a step (in the accumulated step after phase 1, with its 1/k).
+Each update sums the gradients over the group
+(:func:`~..parallel.allreduce_grads`) before the norm and AdamW, so every
+rank takes the same update, and the metrics are summed, so every rank holds
+the global values.  The power iteration sees the same weights on every
+rank, so ``u``/``v`` stay equal without a broadcast.  With W = 1 every
+weight is exactly 1 (1/1, x/x) and every collective is a no-op or a sum
+over one rank, so there is one step: on one process it is the plain step
+bit for bit.  The collectives are explicit, not
+``DistributedDataParallel``: D runs twice a step (the second time frozen),
+the accumulated step runs 2k backwards before one update, and remat
+re-enters the G forward, which DDP's hooks do not expect.
 """
 
 from __future__ import annotations
@@ -76,6 +97,7 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from personalized_text_to_speech_tpu_torch import parallel
 from personalized_text_to_speech_tpu_torch.models.layers import power_iteration
 from personalized_text_to_speech_tpu_torch.ops.masking import slice_segments
 from personalized_text_to_speech_tpu_torch.ops.spectrogram import (
@@ -186,6 +208,8 @@ def make_train_step(hps, debug_grads: bool = False, accum_steps: int = 1,
     (the microbatches' joined along the batch); with ``accum_steps > 1`` also
     phase 1's under ``_out_d``.  ``accum_steps`` and ``remat``: the
     module docstring; the batch size must be divisible by ``accum_steps``.
+    The step takes the group of :mod:`..parallel` that exists when it is
+    built (none: one process), and ``batch`` is this rank's rows.
     """
     k = int(accum_steps)
     if k < 1:
@@ -202,9 +226,10 @@ def make_train_step(hps, debug_grads: bool = False, accum_steps: int = 1,
     inter_ch = hps.model.inter_channels
     use_sdp = bool(hps.model.get("use_sdp", True))
     bf16 = uses_bf16(hps)
-    inv_k = 1.0 / k
-    # the microbatch weight of the batch-mean terms, none in the fused step
-    inv = None if k == 1 else inv_k
+    world = parallel.world_size()
+    # the weight of a microbatch's batch-mean terms in the global batch (1 in
+    # the fused step on one process: the products are then exact)
+    inv_k = 1.0 / (k * world)
 
     def autocast(device):
         return torch.autocast(device_type=device.type, dtype=torch.bfloat16,
@@ -244,32 +269,38 @@ def make_train_step(hps, debug_grads: bool = False, accum_steps: int = 1,
                 y_d_r, y_d_g, _, _ = d(y_seg, y_hat.detach())
             return losses.discriminator_loss(y_d_r, y_d_g)
 
-    def g_losses(d, out, y_seg, y_mel, dur_scale=None, kl_scale=None):
-        """The G losses through ``d`` (frozen by the caller), weighted for
-        a microbatch of an accumulated step (module docstring)."""
-        def w(x, s):
-            return x if s is None else x * s
-
+    def g_losses(d, out, y_seg, y_mel, dur_scale, kl_scale):
+        """The G losses through ``d`` (frozen by the caller), weighted as a
+        microbatch of the global batch (module docstring)."""
         with record_function("train/g_losses"):
             y_hat = out["wav_hat"]
             y_hat_mel = mel_spectrogram(y_hat, mel_cfg).transpose(1, 2)
             with autocast(y_hat.device):
                 _, y_d_g, fmap_r, fmap_g = d(y_seg, y_hat)
-            loss_dur = w(torch.sum(out["l_length"].float()), dur_scale)
+            loss_dur = torch.sum(out["l_length"].float()) * dur_scale
             loss_mel = torch.mean(torch.abs(y_mel - y_hat_mel)) * (c_mel * inv_k)
             loss_kl = losses.kl_loss(out["z_p"], out["logs_q"], out["m_p"],
                                      out["logs_p"], out["y_mask"])
-            loss_kl = w(loss_kl * c_kl, kl_scale)
-            loss_fm = w(losses.feature_loss(fmap_r, fmap_g), inv)
+            loss_kl = loss_kl * c_kl * kl_scale
+            loss_fm = losses.feature_loss(fmap_r, fmap_g) * inv_k
             loss_gen, gen_losses = losses.generator_loss(y_d_g)
-            loss_gen = w(loss_gen, inv)
+            loss_gen = loss_gen * inv_k
             total = loss_gen + loss_fm + loss_mel + loss_dur + loss_kl
         return {"loss/g/total": total, "loss/g/gen": loss_gen,
                 "loss/g/fm": loss_fm, "loss/g/mel": loss_mel,
                 "loss/g/dur": loss_dur, "loss/g/kl": loss_kl,
-                **{f"loss/g/{i}": w(v, inv) for i, v in enumerate(gen_losses)}}
+                **{f"loss/g/{i}": v * inv_k for i, v in enumerate(gen_losses)}}
+
+    def mask_sums(x_sum, y_sum):
+        """[Σx_mask, Σy_mask] of the global batch (one all-reduce)."""
+        sums = torch.stack([x_sum, y_sum])
+        with record_function("train/normaliser_allreduce"):
+            parallel.allreduce_([sums])
+        return sums[0], sums[1]
 
     def update(state: TrainState, name: str):
+        with record_function(f"train/{name}_allreduce"):
+            parallel.allreduce_grads(state.module)
         with record_function(f"train/{name}_update"):
             grads = {n: p.grad for n, p in state.module.named_parameters()}
             norm = global_norm([v for v in grads.values() if v is not None])
@@ -287,7 +318,15 @@ def make_train_step(hps, debug_grads: bool = False, accum_steps: int = 1,
         # per-discriminator breakdown (reference finetune_speaker_v2.py:246-248)
         metrics.update({f"loss/d_r/{i}": v for i, v in enumerate(d_r)})
         metrics.update({f"loss/d_g/{i}": v for i, v in enumerate(d_g)})
-        return {n: v.detach() for n, v in metrics.items()}
+        metrics = {n: v.detach() for n, v in metrics.items()}
+        # the loss terms are this rank's shares: their sums are the global
+        # batch's (the gradient norms are global already)
+        names = [n for n in metrics if n.startswith("loss/")]
+        flat = torch.stack([metrics[n].float() for n in names])
+        with record_function("train/metrics_allreduce"):
+            parallel.allreduce_([flat])
+        metrics.update(zip(names, flat.unbind()))
+        return metrics
 
     def fused_step(g_state: TrainState, d_state: TrainState, batch: Batch,
                    generator: Optional[torch.Generator] = None,
@@ -312,6 +351,14 @@ def make_train_step(hps, debug_grads: bool = False, accum_steps: int = 1,
 
         # ---- 3. discriminator update on the detached audio ----------------
         loss_disc, d_r, d_g = d_losses(d, y_seg, out["wav_hat"])
+        # this rank's share of the global batch (all 1 on one process)
+        loss_disc = loss_disc * inv_k
+        d_r = [v * inv_k for v in d_r]
+        d_g = [v * inv_k for v in d_g]
+        x_rank = out["x_mask"].float().sum()
+        y_rank = out["y_mask"].float().sum()
+        x_sum, y_sum = mask_sums(x_rank, y_rank)
+        dur_scale, kl_scale = x_rank / x_sum, y_rank / y_sum
         with record_function("train/d_backward"):
             d_state.optimizer.zero_grad(set_to_none=True)
             loss_disc.backward()
@@ -320,7 +367,7 @@ def make_train_step(hps, debug_grads: bool = False, accum_steps: int = 1,
         # ---- 4. generator losses through the UPDATED discriminator --------
         d.requires_grad_(False)
         try:
-            g_metrics = g_losses(d, out, y_seg, y_mel)
+            g_metrics = g_losses(d, out, y_seg, y_mel, dur_scale, kl_scale)
             with record_function("train/g_backward"):
                 g_state.optimizer.zero_grad(set_to_none=True)
                 g_metrics["loss/g/total"].backward()
@@ -381,6 +428,7 @@ def make_train_step(hps, debug_grads: bool = False, accum_steps: int = 1,
             d_r = d_r + torch.stack(r).detach() * inv_k
             d_g = d_g + torch.stack(gl).detach() * inv_k
         masks_after = masks.get_state()
+        x_sum, y_sum = mask_sums(x_sum, y_sum)
         grads_d, grad_norm_d = update(d_state, "d")
         _assign(spectral, uv_after)
 

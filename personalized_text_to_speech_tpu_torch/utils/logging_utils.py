@@ -155,16 +155,26 @@ class SummaryWriter:
             self._jsonl.close()
 
 
-def get_logger(model_dir: str, filename: str = "train.log") -> logging.Logger:
-    """File + console logger per run directory (reference ``utils.py:390-402``)."""
-    logger = logging.getLogger(os.path.basename(os.path.abspath(model_dir)))
+def get_logger(model_dir: str,
+               filename: Optional[str] = "train.log") -> logging.Logger:
+    """File + console logger per run directory (reference ``utils.py:390-402``);
+    console only with ``filename=None`` (the ranks of a data-parallel run
+    other than rank 0).  The lines name the directory's basename, as the
+    reference's do; the logger is keyed by the whole path, so two run
+    directories of one name in a process keep their own ``train.log``."""
+    path = os.path.abspath(model_dir)
+    logger = logging.getLogger(path)
     logger.setLevel(logging.DEBUG)
     if not logger.handlers:
-        os.makedirs(model_dir, exist_ok=True)
-        fmt = logging.Formatter("%(asctime)s\t%(name)s\t%(levelname)s\t%(message)s")
-        fh = logging.FileHandler(os.path.join(model_dir, filename), encoding="utf-8")
-        fh.setFormatter(fmt)
-        logger.addHandler(fh)
+        fmt = logging.Formatter(
+            "%(asctime)s\t" + os.path.basename(path).replace("%", "%%")
+            + "\t%(levelname)s\t%(message)s")
+        if filename is not None:
+            os.makedirs(model_dir, exist_ok=True)
+            fh = logging.FileHandler(os.path.join(model_dir, filename),
+                                     encoding="utf-8")
+            fh.setFormatter(fmt)
+            logger.addHandler(fh)
         sh = logging.StreamHandler()
         sh.setFormatter(fmt)
         logger.addHandler(sh)
