@@ -134,6 +134,31 @@ goes wrong:
     personalized_text_to_speech_tpu_torch.parallel.dryrun --nproc 2
     --device cuda --full-width`` (16 rows of up to 400 frames and 192
     tokens, 8 a rank) with a time limit.
+16. tensor-parallel fine-tuning at full width, TF32 off, every launch
+    counter set to 0 first, every MAS call held to the plain MAS on its own
+    scores on the process that made it; two ranks on the one card over
+    gloo, data 1 x model 2 (G and D sharded over the model axis,
+    ``parallel/tp.py``): (a) one step at B=2 (2 rows of phase 7's set),
+    spectral-norm D off and on, against one process on the card with
+    ``dryrun.compare_tp``'s bounds (JAX's: losses 2e-4, gradient slices
+    rtol 2e-4 / atol 2e-6 x scale, a tensor past it excused within 2e-2 of
+    its largest value while its network's gradient is within 1e-4 of its
+    norm, for leaky-ReLU slope flips; parameters after the update within 3
+    learning rates, u/v), replicated tensors bit-identical on both ranks,
+    at least 90 % of G sharded, each rank's resident memory after the step
+    below the unsharded process's and its state (parameters, gradients,
+    moments) below 0.6 of it; (b) a TP ``Trainer`` on a new copy of phase
+    7's set: ``fit`` for 2 steps and 3 steps more, save, a new Trainer
+    resumes bit for bit on both ranks, ``evaluate()``; then an unsharded
+    ``Trainer`` here resumes the checkpoint with equal parameters and
+    moments, its ``evaluate()`` within 1e-5 of rank 0's audio and one
+    step of its 8-bit images, and
+    ``G_latest.pth`` loads strictly into an unsharded model; in (a) and (c)
+    3 more steps timed on each side, their MAS calls held to the plain MAS
+    after the clock; (c) ``python
+    -m personalized_text_to_speech_tpu_torch.parallel.dryrun --nproc 2
+    --model 2 --device cuda --full-width`` (16 rows on both ranks) with a
+    time limit.
 
 The last lines are a line of MAS launches per path, a ``{"kernels": [...]}``
 JSON line, the ``nvidia-smi`` name/power-limit line, and
@@ -2476,7 +2501,7 @@ def data_parallel(kernels, fp32_step_ms: float, smi: str) -> dict:
 
         launches0 = kernels["mas"].launches
         job = dp_job(filelist, spectral=True)
-        two = dryrun.check_data_parallel(job, 2, TRAIN_DEVICE,
+        two = dryrun.check_parallel(job, 2, TRAIN_DEVICE,
                                          DP_RANKS_LIMIT_S, say=log)
         two["reference_launches"] = kernels["mas"].launches - launches0
         if two["mas_launches"] != [1, 1]:
@@ -2505,6 +2530,188 @@ def data_parallel(kernels, fp32_step_ms: float, smi: str) -> dict:
     result["phase_s"] = time.perf_counter() - t_phase
     log(f"data-parallel fine-tuning: {result['phase_s']:.2f} s; MAS launches "
         + json.dumps(result["launches"]))
+    return result
+
+
+# --------------------------------------------------------------------------
+# tensor-parallel fine-tuning: two gloo ranks on the one card, model axis 2
+# --------------------------------------------------------------------------
+
+# rows of phase 16 (a)'s step and the steps timed after it, and the
+# seconds its ranks, the TP Trainer's ranks and the TP dry run may take
+TP_ROWS = 2
+TP_TIMED_STEPS = 3
+TP_RANKS_LIMIT_S = 240
+TP_TRAINER_LIMIT_S = 300
+TP_DRYRUN_LIMIT_S = 360
+# TP Trainer steps after its fit
+TP_EXTRA_STEPS = 3
+# evaluate() of the TP Trainer's rank 0 (an unsharded copy) against the
+# unsharded Trainer's on the same card: each audio within this share of its
+# largest value, each 8-bit image within one step
+TP_EVAL_TOL = 1e-5
+
+
+def tp_step(filelist: str, kernels, smi: str) -> dict:
+    """Phase 16 (a): two gloo ranks on the card, data 1 x model 2, full
+    width, B=2, spectral-norm D off and on, against one process with
+    ``dryrun.compare_tp``'s bounds; each rank's resident state and peak
+    against the unsharded process's."""
+    from personalized_text_to_speech_tpu_torch.parallel import dryrun
+
+    result = {}
+    for spectral in (False, True):
+        job = dp_job(filelist, spectral=spectral)
+        job["batch"] = {k: v[:TP_ROWS] for k, v in job["batch"].items()}
+        job["samples"] = [None if t is None else t[:TP_ROWS]
+                          for t in job["samples"]]
+        job["timed_steps"] = TP_TIMED_STEPS
+        launches0 = kernels["mas"].launches
+        report = dryrun.check_parallel(job, 2, TRAIN_DEVICE, TP_RANKS_LIMIT_S,
+                                       say=log, model=2)
+        report["reference_launches"] = kernels["mas"].launches - launches0
+        del job
+        steps = 1 + TP_TIMED_STEPS
+        if report["mas_launches"] != [steps, steps] or \
+                report["reference_launches"] != steps:
+            raise AssertionError(f"tp step: MAS launches {report['mas_launches']}"
+                                 f", reference {report['reference_launches']}")
+        if report["sharded_g"] < dryrun.MIN_SHARDED:
+            raise AssertionError(f"tp step: {report['sharded_g']:.3f} of G "
+                                 "sharded")
+        ref_mem = report["ref_memory"]
+        for mem in report["memory"]:
+            if mem["after_step_mib"] >= ref_mem["after_step_mib"] or \
+                    mem["state_mib"] >= 0.6 * ref_mem["state_mib"]:
+                raise AssertionError(f"tp step: rank memory {mem} against "
+                                     f"the unsharded {ref_mem}")
+        label = "spectral" if spectral else "weight_norm"
+        result[label] = {k: v for k, v in report.items() if k != "ref_metrics"}
+        log(f"tp step (data 1 x model 2, B={TP_ROWS}, {label} D) on {smi}: "
+            + json.dumps(result[label]))
+    return result
+
+
+def tp_trainer(filelist: str, kernels, tmp: Path, smi: str) -> dict:
+    """Phase 16 (b): a TP ``Trainer`` on two gloo ranks (``fit`` for 2
+    steps, 3 steps more, save, resume bit for bit, ``evaluate()``), then in
+    this process an unsharded ``Trainer`` resumes the checkpoint with equal
+    parameters and moments, its ``evaluate()`` matches rank 0's, and
+    ``G_latest.pth`` loads strictly into an unsharded model."""
+    from personalized_text_to_speech_tpu_torch.models.synthesizer import (
+        SynthesizerTrn,
+    )
+    from personalized_text_to_speech_tpu_torch.parallel import dryrun
+    from personalized_text_to_speech_tpu_torch.train.loop import Trainer
+    from personalized_text_to_speech_tpu_torch.utils import torch_compat as tc
+
+    hps = train_hps(filelist, bf16=False)
+    hps.tpu.mesh = {"data": 1, "model": 2}
+    gen = torch.Generator().manual_seed(16)
+    dp_noise = torch.randn(1, max(hps.tpu.text_buckets), 2, generator=gen)
+    prior_noise = torch.randn(1, max(hps.tpu.frame_buckets),
+                              hps.model.inter_channels, generator=gen)
+    model_dir = tmp / "tp_run"
+    t0 = time.perf_counter()
+    ranks = dryrun.spawn_ranks(
+        {"hps": hps.to_dict(), "model_dir": str(model_dir), "epochs": 1,
+         "extra_steps": TP_EXTRA_STEPS, "dp_noise": dp_noise,
+         "prior_noise": prior_noise},
+        2, TRAIN_DEVICE, TP_TRAINER_LIMIT_S, task="trainer")
+    ranks_s = time.perf_counter() - t0
+    steps = ranks[0]["steps"]
+    for r in ranks:
+        if r["steps"] != steps or r["mas_launches"] != steps or \
+                r["mas_calls"] != steps or r["mas_plain_equal"] is not True:
+            raise AssertionError(
+                f"tp Trainer rank {r['rank']}: {r['steps']} steps, "
+                f"{r['mas_launches']} MAS launches, {r['mas_calls']} calls, "
+                f"plain MAS equal {r['mas_plain_equal']}")
+        if not r["resume_held"]:
+            raise AssertionError(f"tp Trainer rank {r['rank']}: resume did "
+                                 "not hold the state bit for bit")
+    if steps != ranks[0]["fit_steps"] + TP_EXTRA_STEPS or steps <= TP_EXTRA_STEPS:
+        raise AssertionError(f"tp Trainer: {steps} steps, "
+                             f"{ranks[0]['fit_steps']} in the fit")
+
+    hps1 = train_hps(filelist, bf16=False)
+    back = Trainer(hps1, str(model_dir), device=TRAIN_DEVICE)
+    if back.mesh.model != 1 or not back.resume() or back.global_step != steps:
+        raise AssertionError("tp Trainer: model 1 did not resume the run")
+    whole = dryrun.whole_state(back)
+    for r in ranks:
+        bad = dryrun.slices_differ(whole, r, r["end"])
+        if bad:
+            raise AssertionError(f"tp Trainer rank {r['rank']}: the model-1 "
+                                 f"resume differs in {bad[:6]}")
+    images, audios = back.evaluate(dp_noise=dp_noise, prior_noise=prior_noise)
+    got_images, got_audios = ranks[0]["evaluate"]
+    eval_err = {}
+    for k, v in audios.items():
+        err = float(np.abs(got_audios[k].numpy() - v).max())
+        eval_err[k] = err
+        if err > TP_EVAL_TOL * float(np.abs(v).max()):
+            raise AssertionError(f"tp evaluate(): {k} off by {err}")
+    for k, v in images.items():  # 8-bit images: at most one step
+        err = float(np.abs(got_images[k].numpy().astype(np.int64)
+                           - np.asarray(v).astype(np.int64)).max())
+        eval_err[k] = err
+        if err > 1:
+            raise AssertionError(f"tp evaluate(): {k} off by {err} steps")
+    state, _ = tc.load_torch_checkpoint(str(model_dir / "G_latest.pth"))
+    g = SynthesizerTrn.from_hparams(hps1)
+    g.load_state_dict(state, strict=True)
+    same = all(torch.equal(state[k], v.cpu())
+               for k, v in back.g_state.module.state_dict().items())
+    if not same:
+        raise AssertionError("tp Trainer: G_latest.pth is not the resumed G")
+    del back, whole, g, state
+    torch.cuda.empty_cache()
+    result = {"steps": steps, "ranks_s": ranks_s,
+              "launches": sum(r["mas_launches"] for r in ranks),
+              "evaluate_max_abs_err": eval_err}
+    log(f"tp Trainer (2 gloo ranks, model 2) on {smi}: {steps} steps, save, "
+        f"resume bit for bit on both ranks, model-1 resume equal, "
+        f"G_latest.pth strict, evaluate() against the unsharded "
+        f"{json.dumps(eval_err)}; {ranks_s:.1f} s")
+    return result
+
+
+def tensor_parallel(kernels, smi: str) -> dict:
+    """Phase 16: (a) the TP step against one process, (b) the TP Trainer,
+    (c) the TP dry run at full width."""
+    t_phase = time.perf_counter()
+    for fn in kernels.values():
+        fn.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        from personalized_text_to_speech_tpu_torch.config import load_hparams
+
+        data_hps = load_hparams(str(CONFIG))
+        (tmp / "data").mkdir()
+        make_train_set(tmp / "data", data_hps)
+        filelist = data_hps.data.training_files
+        result = {"step": tp_step(filelist, kernels, smi),
+                  "trainer": tp_trainer(filelist, kernels, tmp, smi)}
+    out = run_limited([sys.executable, "-m",
+                       "personalized_text_to_speech_tpu_torch.parallel.dryrun",
+                       "--nproc", "2", "--model", "2", "--device", "cuda",
+                       "--full-width"], TP_DRYRUN_LIMIT_S)
+    log(out.rstrip())
+    result["dryrun"] = json.loads(out.strip().splitlines()[-1])
+    result["launches"] = {
+        **{f"tp step {k} reference": r["reference_launches"]
+           for k, r in result["step"].items()},
+        **{f"tp step {k} 2 ranks": sum(r["mas_launches"])
+           for k, r in result["step"].items()},
+        "tp Trainer 2 ranks": result["trainer"]["launches"],
+        "tp dryrun 2 ranks": sum(result["dryrun"]["mas_launches"]),
+    }
+    if 0 in result["launches"].values():
+        raise AssertionError(f"tensor-parallel paths: {result['launches']}")
+    result["phase_s"] = time.perf_counter() - t_phase
+    log(f"tensor-parallel fine-tuning: {result['phase_s']:.2f} s; MAS "
+        "launches " + json.dumps(result["launches"]))
     return result
 
 
@@ -2676,6 +2883,10 @@ def main() -> int:
     dp = data_parallel(kernels, train_results["fp32"]["step_ms"]["median"],
                        smi)
 
+    phase("16 tensor-parallel fine-tuning at full width: two gloo ranks on "
+          "the card, data 1 x model 2: the step, the Trainer, the dry run")
+    tp_run = tensor_parallel(kernels, smi)
+
     phase("summary")
     by_path = {"serve+forward": serve_launches["mas"],
                **{f"train {m}": r["launches"]["mas"]
@@ -2692,14 +2903,15 @@ def main() -> int:
                   for k, r in rest_step["accum"].items()},
                **{f"bench_mem {dt}": n
                   for dt, n in rest_step["bench_mem"]["launches"].items()},
-               **dp["launches"]}
+               **dp["launches"], **tp_run["launches"]}
     log("launches per path " + json.dumps({
         "mas": by_path,
         "train steps": {**{m: r["steps"] for m, r in train_results.items()},
                         "fine-tune": scored["steps"],
                         **{f"spectral {m}": r["steps"]
                            for m, r in rest_step["spectral"].items()},
-                        "dp world-1 nccl": dp["world_one"]["steps"]},
+                        "dp world-1 nccl": dp["world_one"]["steps"],
+                        "tp Trainer (per rank)": tp_run["trainer"]["steps"]},
     }))
     log(json.dumps({"kernels": [{
         "name": "mas",

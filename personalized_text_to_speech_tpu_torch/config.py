@@ -6,12 +6,16 @@ the same JSON files (``configs/finetune_speaker.json`` and the rest, with the
 ``utils.py:296-434``) into the same :class:`HParams` tree.
 
 The optional ``tpu`` section keeps its name, because the JSON files share it
-with the JAX package.  The port reads its bucket lists and its mesh:
+with the JAX package.  The port reads its bucket lists, its mesh and ``sp``:
 
 ``tpu.text_buckets``   — text-length buckets the serving engine pads to.
 ``tpu.frame_buckets``  — spectrogram-frame buckets of the decode stage.
-``tpu.mesh``           — the data-parallel layout the ``Trainer`` checks
-                         against its process group (``parallel.create_mesh``).
+``tpu.mesh``           — the data × model layout the ``Trainer`` lays over
+                         its process group (``parallel.create_mesh``); a
+                         ``model`` axis above 1 is tensor parallelism
+                         (``parallel/tp.py``).
+``tpu.sp``             — sequence parallelism over that axis: not ported;
+                         ``true`` with a ``model`` axis above 1 raises.
 """
 
 from __future__ import annotations

@@ -1,31 +1,36 @@
-"""Data parallelism across processes: the mesh, the rank, and the
-collectives of the train step.
+"""The mesh of processes, the rank, and the collectives of the train step.
 
 Counterpart of ``personalized_text_to_speech_tpu/parallel/mesh.py``.  The
 reference's only distribution mode is DDP over the local GPUs, one process
 per GPU (``finetune_speaker_v2.py:69,144-145``); the JAX package lays the
-same data parallelism out as a ``data`` mesh axis that GSPMD reduces over.
-Here one process runs per device, each holds its rank's rows
-(:class:`~..data.dataset.BucketBatcher` with ``shard_index``/``shard_count``),
-and the train step sums its gradients, loss normalisers and metrics with
-explicit ``torch.distributed`` collectives (:func:`allreduce_grads`,
-:func:`allreduce_`), so every rank sees the global batch's gradient, as the
-GSPMD step does.  The group comes from
+same data parallelism out as a ``data`` mesh axis that GSPMD reduces over,
+and tensor parallelism as a ``model`` axis (``parallel/tp.py``).  Here one
+process runs per device, laid out as JAX lays its devices, a ``[data,
+model]`` array of ranks (``rank = data_index · model + model_index``):
+:func:`create_mesh` returns a :class:`Mesh` with the two sizes, this
+rank's two indices and its two subgroups.  Each data index holds its rows
+(:class:`~..data.dataset.BucketBatcher` with ``shard_index``/``shard_count``
+the data index and size), and the train step sums its gradients, loss
+normalisers and metrics over the **data** group with explicit
+``torch.distributed`` collectives (:func:`allreduce_grads`,
+:func:`allreduce_`), so every rank sees the global batch's gradient, as
+the GSPMD step does.  The ranks of one model group hold the same rows and
+the slices of the sharded parameters (:mod:`.tp`).  The group comes from
 :func:`~..utils.runtime.init_distributed`.
 
 JAX's ``shard_batch``, ``batch_sharding`` and ``replicated`` have no
-counterpart: each process already holds its rows, and every parameter is a
-whole replica on its rank (:func:`broadcast_module` makes them equal).  The
-``model`` axis, on which JAX runs tensor parallelism (``parallel/tp.py``) and
-sequence parallelism (``parallel/sp.py``), is not ported yet
-(ROADMAP.md, Queue 1, items 8 and 9): :func:`create_mesh` refuses a
-``model`` axis above 1.
+counterpart: each process already holds its rows, and every replicated
+parameter is a whole replica on its rank (:func:`broadcast_module` makes
+them equal).  Sequence parallelism over the ``model`` axis (JAX
+``parallel/sp.py``, ``tpu.sp``) is not ported yet (ROADMAP.md, Queue 1,
+item 9).
 """
 
 from __future__ import annotations
 
 import os
 import weakref
+from dataclasses import dataclass
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
@@ -39,12 +44,6 @@ BUCKET_BYTES = 25 * 2**20
 # a module → (the positions of its parameters with a gradient, the flat
 # buffers of allreduce_grads' buckets); a module's buffers die with it
 _GRAD_BUFFERS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
-
-_MODEL_AXIS_TODO = (
-    "the mesh's `model` axis (tensor parallelism, JAX parallel/tp.py; "
-    "sequence parallelism, JAX parallel/sp.py) is not ported yet: "
-    "ROADMAP.md, Queue 1, items 8 and 9. Set tpu.mesh.model to 1")
-
 
 def rank() -> int:
     """This process's rank in the group; 0 without a group."""
@@ -73,32 +72,75 @@ def barrier() -> None:
         dist.barrier()
 
 
-def create_mesh(axes: Optional[Dict[str, int]] = None) -> int:
-    """Check the mesh of ``tpu.mesh`` (default ``{"data": -1}``) against the
-    group's processes and return the size of its ``data`` axis.  A size of
-    -1 absorbs the processes the other axes leave, as in JAX; ``data`` must
-    come to the world size, and a ``model`` axis above 1 raises
-    ``NotImplementedError``.  The port's mesh is that one number: a process
-    a device, each a replica."""
+@dataclass(frozen=True)
+class Mesh:
+    """This rank's place in the ``[data, model]`` array of ranks.
+
+    A group is ``None`` where it is the default group (the whole world) or
+    where its axis has size 1 and nothing is reduced over it; callers look
+    at the size first."""
+
+    data: int = 1
+    model: int = 1
+    data_index: int = 0
+    model_index: int = 0
+    data_group: Optional["dist.ProcessGroup"] = None
+    model_group: Optional["dist.ProcessGroup"] = None
+
+    @property
+    def data_root(self) -> int:
+        """The global rank of data index 0 in this rank's data group."""
+        return self.model_index
+
+    @property
+    def model_root(self) -> int:
+        """The global rank of model index 0 in this rank's model group."""
+        return self.data_index * self.model
+
+
+def mesh_shape(axes: Optional[Dict[str, int]], world: int) -> Tuple[int, int]:
+    """``(data, model)`` of ``tpu.mesh`` (default ``{"data": -1}``) over
+    ``world`` processes.  A size of -1 absorbs the processes the other axis
+    leaves, as in JAX; raises ``ValueError`` unless data × model is the
+    world size (one process per device)."""
     axes = dict(axes or {"data": -1})
     unknown = set(axes) - {"data", "model"}
     if unknown:
         raise ValueError(f"mesh axes must be 'data' and 'model', got {sorted(unknown)}")
-    n = world_size()
     fixed = 1
     for size in axes.values():
         if size != -1:
             fixed *= int(size)
-    sizes = {name: n // fixed if size == -1 else int(size)
+    sizes = {name: world // fixed if size == -1 else int(size)
              for name, size in axes.items()}
-    if sizes.get("model", 1) > 1:
-        raise NotImplementedError(f"mesh {sizes}: {_MODEL_AXIS_TODO}")
-    data = sizes.get("data", 1)
-    if data != n:
+    data, model = sizes.get("data", 1), sizes.get("model", 1)
+    if data * model != world or data < 1 or model < 1:
         raise ValueError(
-            f"mesh {sizes} needs a data axis of the world size {n} (one "
-            f"process per device); use -1 for the data axis")
-    return data
+            f"mesh {sizes} needs data x model = {data * model} processes, "
+            f"the world size is {world} (one process per device); use -1 "
+            "for one axis")
+    return data, model
+
+
+def create_mesh(axes: Optional[Dict[str, int]] = None) -> Mesh:
+    """The :class:`Mesh` of ``tpu.mesh`` over the group's processes
+    (:func:`mesh_shape`).  With both axes above 1 every rank creates every
+    subgroup, the model groups then the data groups, in one order (a rank
+    that skipped one would hang the others); with one axis of size 1 the
+    other is the default group and no group is created."""
+    data, model = mesh_shape(axes, world_size())
+    r = rank()
+    data_group = model_group = None
+    if data > 1 and model > 1:
+        for d in range(data):
+            group = dist.new_group([d * model + m for m in range(model)])
+            if d == r // model:
+                model_group = group
+        for m in range(model):
+            group = dist.new_group([d * model + m for d in range(data)])
+            if m == r % model:
+                data_group = group
+    return Mesh(data, model, r // model, r % model, data_group, model_group)
 
 
 def _buckets(tensors: Sequence[torch.Tensor]) -> Iterator[List[torch.Tensor]]:
@@ -132,15 +174,18 @@ def _bucketed(tensors: Sequence[torch.Tensor], collective) -> None:
         torch._foreach_copy_(bucket, _unflatten_dense_tensors(flat, bucket))
 
 
-def allreduce_(tensors: Sequence[torch.Tensor]) -> None:
-    """Sum ``tensors`` over the group in place (the step's loss normalisers
-    and metrics); nothing without a group."""
+def allreduce_(tensors: Sequence[torch.Tensor],
+               group: Optional["dist.ProcessGroup"] = None) -> None:
+    """Sum ``tensors`` over ``group`` (default: the whole group) in place
+    (the step's loss normalisers and metrics); nothing without a group."""
     if dist.is_initialized():
-        _bucketed(list(tensors), dist.all_reduce)
+        _bucketed(list(tensors), lambda t: dist.all_reduce(t, group=group))
 
 
 def _check_grad_pattern(grads: Sequence[Optional[torch.Tensor]],
-                        device: torch.device) -> Tuple[List[int], List[int]]:
+                        device: torch.device,
+                        group: Optional["dist.ProcessGroup"] = None
+                        ) -> Tuple[List[int], List[int]]:
     """Raise on every rank unless all ranks hold the same count of
     gradients, the same ``None`` pattern and the same sizes: a rank with
     another pattern would otherwise wait in a collective the others never
@@ -157,7 +202,7 @@ def _check_grad_pattern(grads: Sequence[Optional[torch.Tensor]],
     sig = [len(grads), len(present), numel, mix % (2**61 - 1)]
     both = torch.tensor(sig + [-v for v in sig], dtype=torch.int64,
                         device=device)
-    dist.all_reduce(both, op=dist.ReduceOp.MAX)
+    dist.all_reduce(both, op=dist.ReduceOp.MAX, group=group)
     if not torch.equal(both[:4], -both[4:]):
         raise RuntimeError(
             f"rank {rank()}: the ranks' gradients differ in count, None "
@@ -188,9 +233,10 @@ def _grad_buffers(module: nn.Module, key: tuple,
     return cached[1]
 
 
-def allreduce_grads(module: nn.Module) -> None:
-    """Sum every ``.grad`` of ``module`` that is not ``None`` over the
-    group, in parameter order, in buckets of at most :data:`BUCKET_BYTES`:
+def allreduce_grads(module: nn.Module,
+                    group: Optional["dist.ProcessGroup"] = None) -> None:
+    """Sum every ``.grad`` of ``module`` that is not ``None`` over
+    ``group`` (default: the whole group), in parameter order, in buckets of at most :data:`BUCKET_BYTES`:
     one multi-tensor copy into the bucket's persistent flat buffer, the
     all-reduce, and one copy back.  A ``None`` stays ``None`` (AdamW skips
     a missing gradient but decays on a zero one).  First one small
@@ -202,7 +248,7 @@ def allreduce_grads(module: nn.Module) -> None:
     if not params:
         return
     grads = [p.grad for p in params]
-    present, sig = _check_grad_pattern(grads, params[0].device)
+    present, sig = _check_grad_pattern(grads, params[0].device, group)
     if not present:
         return
     grads = [grads[i] for i in present]
@@ -210,22 +256,33 @@ def allreduce_grads(module: nn.Module) -> None:
     start = 0
     for entry in _grad_buffers(module, key, grads):
         if entry is None:
-            dist.all_reduce(grads[start])
+            dist.all_reduce(grads[start], group=group)
             start += 1
             continue
         flat, views = entry
         part = grads[start:start + len(views)]
         start += len(views)
         torch._foreach_copy_(views, part)
-        dist.all_reduce(flat)
+        dist.all_reduce(flat, group=group)
         torch._foreach_copy_(part, views)
 
 
-def broadcast_module(module: nn.Module, src: int = 0) -> None:
-    """Give every rank ``src``'s parameters and buffers (the spectral-norm
+def broadcast_module(module: nn.Module, src: int = 0,
+                     group: Optional["dist.ProcessGroup"] = None) -> None:
+    """Give every rank of ``group`` (default: the whole group) the
+    parameters and buffers of global rank ``src`` (the spectral-norm
     ``weight_u``/``weight_v`` among them); nothing without a group."""
     if not dist.is_initialized():
         return
     tensors = [t.data for t in (*module.parameters(), *module.buffers())]
     with torch.no_grad():
-        _bucketed(tensors, lambda t: dist.broadcast(t, src))
+        _bucketed(tensors, lambda t: dist.broadcast(t, src, group=group))
+
+
+def broadcast_over_data(module: nn.Module, mesh: Mesh) -> None:
+    """Give every rank of this rank's data group the parameters and buffers
+    of its data index 0 (under tensor parallelism a model group's ranks
+    hold different slices, so the broadcast runs over the data group);
+    nothing with one data index."""
+    if mesh.data > 1:
+        broadcast_module(module, mesh.data_root, mesh.data_group)

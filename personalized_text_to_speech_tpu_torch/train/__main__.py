@@ -15,11 +15,16 @@ Runs on the card; ``--device cpu`` asks for the CPU.  The config's
 ``model.use_spectral_norm``, ``train.accum_steps`` and ``train.remat`` act
 as in the JAX package's run (:class:`~.loop.Trainer`).
 
-Data parallelism, one process per device: under ``torchrun`` (which sets
-``WORLD_SIZE``), or with ``--distributed``, each process joins the group
-through ``env://``; ``--coordinator host:port --num_processes N
---process_id R`` joins it at that address instead.  The backend is NCCL on
-the card and gloo on the CPU.  On a machine with N cards:
+Data and tensor parallelism, one process per device: under ``torchrun``
+(which sets ``WORLD_SIZE``), or with ``--distributed``, each process joins
+the group through ``env://``; ``--coordinator host:port --num_processes N
+--process_id R`` joins it at that address instead.  The config's
+``tpu.mesh`` lays the processes out as data × model (``{"data": -1}``: data
+parallelism alone; ``{"data": -1, "model": 2}``: G and D sharded over pairs
+of ranks), so the world size, ``N`` and ``--num_processes``, is the product
+of the two axes.  ``tpu.sp`` (sequence parallelism) is not ported yet
+(ROADMAP.md, Queue 1, item 9).  The backend is NCCL on the card and gloo
+on the CPU.  On a machine with N cards:
 
     torchrun --nproc_per_node N -m personalized_text_to_speech_tpu_torch.train \\
         -c configs/modified_finetune_speaker.json -m OUT_MODEL
@@ -101,7 +106,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     parser.add_argument("--coordinator", type=str, default=None,
                         help="rendezvous address host:port of a "
                         "data-parallel run")
-    parser.add_argument("--num_processes", type=int, default=None)
+    parser.add_argument("--num_processes", type=int, default=None,
+                        help="the world size: tpu.mesh's data x model")
     parser.add_argument("--process_id", type=int, default=None)
     parser.add_argument("--distributed", action="store_true",
                         help="join the process group through env:// "

@@ -26,18 +26,34 @@ discriminator, whose ``weight_u``/``weight_v`` ride in its state dict
 
 Data parallelism (JAX ``loop.py:64-101,285-293``): when the caller has
 joined a process group (:func:`~..utils.runtime.init_distributed`), the
-Trainer reads ``tpu.mesh`` (:func:`~..parallel.create_mesh`: ``data`` is the
-world size, a ``model`` axis above 1 raises), takes the card ``LOCAL_RANK``,
-iterates its rank's shard of the batches (``steps_per_epoch`` is the
-per-rank count), broadcasts rank 0's weights after the init, the pretrained
-load and ``resume``, and its step's losses and gradients are the global
-batch's (:mod:`.step`).  The step's draws and the dropout masks
-come from generators seeded ``seed + SEED_OFFSET·rank`` (rank 0 draws what
-one process draws).  Only rank 0 writes ``config.json``, ``train.log``,
-TensorBoard, ``eval/``, the checkpoints and the exported ``.pth``; a barrier
-follows each ``save`` and ``evaluate``.  A rank whose step raises re-raises
-(rank 0 first writes its emergency checkpoint, with no barrier); its peers
-then fail in their next collective, at the latest at the group's timeout.
+Trainer lays ``tpu.mesh`` over it (:func:`~..parallel.create_mesh`: data ×
+model is the world size), takes the card ``LOCAL_RANK``, iterates its data
+index's shard of the batches (``steps_per_epoch`` is the per-rank count),
+broadcasts rank 0's weights after the init and the pretrained load, and
+its step's losses and gradients are the global batch's (:mod:`.step`).
+The step's draws and the dropout masks come from generators seeded ``seed
++ SEED_OFFSET·data_index`` (data index 0 draws what one process draws; the
+ranks of a model group draw alike).  Only rank 0 writes ``config.json``,
+``train.log``, TensorBoard, ``eval/``, the checkpoints and the exported
+``.pth``; a barrier follows each ``save`` and ``evaluate``.  A rank whose
+step raises re-raises (rank 0 first writes its emergency checkpoint, with
+no barrier, unless the modules are sharded); its peers then fail in their
+next collective, at the latest at the group's timeout.
+
+Tensor parallelism (JAX ``loop.py:161-204``): with a ``model`` axis above 1
+and ``tpu.sp`` false, G and D are sharded over the model group after the
+broadcast (:func:`~..parallel.tp.shard_module`; the sharded share of G is
+logged) and AdamW holds the slices' moments.  ``save``, ``resume`` and
+``export_reference_checkpoint`` write and read the full state (every rank
+gathers, rank 0 writes, every rank reads and keeps its slices), so a
+checkpoint is one file whatever the tp size, and a run resumes at another.
+:meth:`Trainer.evaluate` gathers G's full weights on every rank and rank 0
+runs an unsharded copy: a sharded forward on rank 0 alone would wait for
+its peers.  The emergency checkpoint of a failed step needs every rank's
+slices, which a failing group may not give, so under tensor parallelism it
+is not written (the last regular checkpoint stands).  ``tpu.sp`` with a
+``model`` axis above 1 (JAX's sequence parallelism) raises
+``NotImplementedError``: ROADMAP.md, Queue 1, item 9.
 """
 
 from __future__ import annotations
@@ -66,6 +82,7 @@ from personalized_text_to_speech_tpu_torch.ops.spectrogram import (
     linear_spectrogram,
     spec_to_mel,
 )
+from personalized_text_to_speech_tpu_torch.parallel import tp
 from personalized_text_to_speech_tpu_torch.train.state import create_train_state
 from personalized_text_to_speech_tpu_torch.train.step import (
     Batch,
@@ -78,9 +95,13 @@ from personalized_text_to_speech_tpu_torch.utils import logging_utils
 from personalized_text_to_speech_tpu_torch.utils import torch_compat as tc
 from personalized_text_to_speech_tpu_torch.utils.profiling import check_git_hash
 
-# rank r of a data-parallel run seeds its draws and dropout masks with
-# seed + SEED_OFFSET·r
+# data index r of a data-parallel run seeds its draws and dropout masks
+# with seed + SEED_OFFSET·r
 SEED_OFFSET = 1000
+
+_SP_TODO = ("tpu.sp (sequence parallelism over the mesh's `model` axis, JAX "
+            "parallel/sp.py) is not ported yet: ROADMAP.md, Queue 1, item 9. "
+            "Set tpu.sp to false for tensor parallelism over that axis")
 
 
 class Trainer:
@@ -97,11 +118,16 @@ class Trainer:
         self.rank, self.world = parallel.rank(), parallel.world_size()
         self.is_primary = self.rank == 0
         if use_mesh:
-            parallel.create_mesh(dict(hps.tpu.mesh.items()))  # raises if unmet
+            axes = dict(hps.tpu.mesh.items())
+            if hps.tpu.get("sp", False) and axes.get("model", 1) != 1:
+                raise NotImplementedError(_SP_TODO)
+            self.mesh = parallel.create_mesh(axes)  # raises if unmet
         elif self.world > 1:
             raise ValueError(
                 f"use_mesh=False trains on one process; this group has "
                 f"{self.world}")
+        else:
+            self.mesh = parallel.create_mesh(None)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -138,8 +164,8 @@ class Trainer:
             if os.path.exists(hps.data.validation_files) else None
         )
         self.batcher = BucketBatcher(self.train_set, hps.train.batch_size,
-                                     shard_index=self.rank,
-                                     shard_count=self.world,
+                                     shard_index=self.mesh.data_index,
+                                     shard_count=self.mesh.data,
                                      seed=hps.train.seed)
         self.steps_per_epoch = max(len(self.batcher), 1)
 
@@ -160,14 +186,23 @@ class Trainer:
         d.to(self.device)
         parallel.broadcast_module(g)
         parallel.broadcast_module(d)
+        if self.mesh.model > 1:
+            sharded, total = tp.count_sharded(g, self.mesh.model)
+            self.logger.info(
+                "tensor parallelism x%d over 'model': %.1f%% of G params "
+                "sharded (%d / %d)", self.mesh.model,
+                100.0 * sharded / max(total, 1), sharded, total)
+            tp.shard_module(g, self.mesh)
+            tp.shard_module(d, self.mesh)
         self.g_state = create_train_state(g, hps, self.steps_per_epoch)
         self.d_state = create_train_state(d, hps, self.steps_per_epoch)
         self.step_fn = make_train_step(
             hps, accum_steps=int(hps.train.get("accum_steps", 1)),
-            remat=str(hps.train.get("remat", "none")))
+            remat=str(hps.train.get("remat", "none")), mesh=self.mesh)
+        self._eval_g = None  # evaluate()'s unsharded copy of G, on rank 0
         # the step's draws, and the device's default generator, which the
         # dropout masks come from
-        offset = SEED_OFFSET * self.rank
+        offset = SEED_OFFSET * self.mesh.data_index
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(hps.train.seed + 17 + offset)
         _default_generator(self.device).manual_seed(hps.train.seed + offset)
@@ -182,21 +217,34 @@ class Trainer:
             return False
         self.global_step = step
         self.epoch = step // self.steps_per_epoch + 1
-        parallel.broadcast_module(self.g_state.module)
-        parallel.broadcast_module(self.d_state.module)
+        parallel.broadcast_over_data(self.g_state.module, self.mesh)
+        parallel.broadcast_over_data(self.d_state.module, self.mesh)
         self.logger.info("resumed at step %d (epoch %d)", step, self.epoch)
         return True
 
     def save(self) -> None:
-        """The full train state on rank 0, then a barrier."""
+        """The full train state (gathered by every rank under tensor
+        parallelism) written by rank 0, then a barrier."""
         self._save_local()
         parallel.barrier()
 
     def _save_local(self) -> None:
-        if self.is_primary:
+        if self.is_primary or self.mesh.model > 1:
             ckpt.save_train_state(self._ckpt_dir(), self.global_step,
                                   self.g_state, self.d_state,
-                                  preserved=int(self.hps.get("preserved", 4)))
+                                  preserved=int(self.hps.get("preserved", 4)),
+                                  write=self.is_primary)
+
+    def _save_emergency(self) -> None:
+        """The checkpoint of a failed run, without collectives: sharded
+        modules would need their peers' slices, so there is none under
+        tensor parallelism."""
+        if self.mesh.model > 1:
+            self.logger.warning("tensor parallelism: no emergency checkpoint "
+                                "(it needs every rank's slices); the last "
+                                "checkpoint stands")
+            return
+        self._save_local()
 
     def _ckpt_dir(self) -> str:
         return os.path.join(self.model_dir, "checkpoints")
@@ -205,18 +253,17 @@ class Trainer:
         """Write reference-layout ``G_latest.pth``/``D_latest.pth``, which
         ``TTSEngine(checkpoint_path=…)`` and a later fine-tune's
         ``--pretrained_g/--pretrained_d`` load (reference
-        ``finetune_speaker_v2.py:102-115``); rank 0 writes them, then a
-        barrier."""
-        if not self.is_primary:
-            parallel.barrier()
-            return
+        ``finetune_speaker_v2.py:102-115``), whole whatever the tp size
+        (every rank gathers); rank 0 writes them, then a barrier."""
         for name, state in (("G", self.g_state), ("D", self.d_state)):
-            tc.save_torch_checkpoint(
-                state.module.state_dict(),
-                os.path.join(self.model_dir, f"{name}_latest.pth"),
-                iteration=self.epoch,
-                learning_rate=self.hps.train.learning_rate,
-            )
+            weights = tp.full_state_dict(state.module)
+            if self.is_primary:
+                tc.save_torch_checkpoint(
+                    weights,
+                    os.path.join(self.model_dir, f"{name}_latest.pth"),
+                    iteration=self.epoch,
+                    learning_rate=self.hps.train.learning_rate,
+                )
         parallel.barrier()
 
     # ------------------------------------------------------------------
@@ -288,12 +335,25 @@ class Trainer:
         ``audios`` summarized, or ``None`` with no utterance to take.
 
         In a data-parallel run rank 0 evaluates and the others return
-        ``None``; a barrier follows."""
-        out = self._evaluate(dp_noise, prior_noise) if self.is_primary else None
+        ``None``; a barrier follows.  Under tensor parallelism every rank
+        first gathers G's full weights and rank 0 evaluates an unsharded
+        copy of G built from them (module docstring)."""
+        model = self.g_state.module
+        if tp.is_sharded(model):
+            weights = tp.full_state_dict(model)
+            if self.is_primary:
+                if self._eval_g is None:
+                    self._eval_g = SynthesizerTrn.from_hparams(self.hps)
+                self._eval_g.load_state_dict(weights, strict=True)
+                self._eval_g.to(self.device).train(model.training)
+                model = self._eval_g
+            del weights
+        out = (self._evaluate(model, dp_noise, prior_noise)
+               if self.is_primary else None)
         parallel.barrier()
         return out
 
-    def _evaluate(self, dp_noise, prior_noise):
+    def _evaluate(self, model, dp_noise, prior_noise):
         source = self.eval_set or self.train_set
         if len(source) == 0:
             return None
@@ -312,7 +372,6 @@ class Trainer:
         sid = torch.tensor([int(item["sid"])], dtype=torch.long,
                            device=self.device)
 
-        model = self.g_state.module
         was_training = model.training
         model.eval()
         try:
@@ -384,7 +443,7 @@ class Trainer:
                 self.epoch += 1
         except KeyboardInterrupt:
             self.logger.warning("interrupted - saving a checkpoint before exit")
-            self._save_local()
+            self._save_emergency()
             raise
         except Exception:
             # the reference loses all progress on a failure; here the full
@@ -392,7 +451,7 @@ class Trainer:
             # barrier: the peers may be waiting in a collective of the step
             self.logger.exception("training step failed - saving an "
                                   "emergency checkpoint")
-            self._save_local()
+            self._save_emergency()
             raise
         self.save()
         self.export_reference_checkpoint()

@@ -9,15 +9,24 @@ decay γ = 0.999875 taken as a staircase, ``lr·γ^⌊step/steps_per_epoch⌋``,
 through a per-step ``LambdaLR``.  As in optax, update ``k`` (from 0) runs at
 ``lr·γ^⌊k/steps_per_epoch⌋``.  Gradient norms are logged, never clipped
 (the reference's ``clip_grad_value_(…, None)``).
+
+Under tensor parallelism (:mod:`..parallel.tp`) the module holds slices and
+AdamW updates them; :meth:`TrainState.state_dict` is nonetheless the full
+state (a collective of the model group) and :meth:`TrainState.load_state_dict`
+takes the full state and keeps this rank's slices, so a checkpoint is one
+file whatever the tp size.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Iterable, Sequence
+from typing import Iterable, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 from torch import nn
+
+from personalized_text_to_speech_tpu_torch.parallel import tp
 
 
 def make_optimizer(
@@ -57,16 +66,20 @@ class TrainState:
         self.step += 1
 
     def state_dict(self) -> dict:
+        """The full state: every rank of a model group calls it."""
         return {
-            "params": self.module.state_dict(),
-            "optimizer": self.optimizer.state_dict(),
+            "params": tp.full_state_dict(self.module),
+            "optimizer": tp.full_optimizer_state_dict(self.optimizer,
+                                                      self.module),
             "scheduler": self.scheduler.state_dict(),
             "step": self.step,
         }
 
     def load_state_dict(self, state: dict) -> None:
-        self.module.load_state_dict(state["params"], strict=True)
-        self.optimizer.load_state_dict(state["optimizer"])
+        """From the full state; no collective."""
+        tp.load_full_state_dict(self.module, state["params"])
+        tp.load_full_optimizer_state_dict(self.optimizer, self.module,
+                                          state["optimizer"])
         self.scheduler.load_state_dict(state["scheduler"])
         self.step = int(state["step"])
 
@@ -83,7 +96,23 @@ def create_train_state(module: nn.Module, hps, steps_per_epoch: int) -> TrainSta
     return TrainState(module, opt, sched)
 
 
-def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+def global_norm(tensors: Sequence[torch.Tensor],
+                sharded: Optional[Sequence[bool]] = None,
+                group: Optional["dist.ProcessGroup"] = None) -> torch.Tensor:
     """Global L2 norm over a list of gradients, in float32 (the metric the
-    reference logs as grad_norm_g/grad_norm_d, ``commons.py:149-164``)."""
-    return torch.nn.utils.get_total_norm([t.float() for t in tensors], 2.0)
+    reference logs as grad_norm_g/grad_norm_d, ``commons.py:149-164``).
+    Under tensor parallelism ``sharded`` marks the slices: their squares
+    are summed over the model ``group``, and each replicated tensor, which
+    every rank holds whole, counts once."""
+    if sharded is None or not any(sharded):
+        return torch.nn.utils.get_total_norm([t.float() for t in tensors], 2.0)
+
+    def sq(part):
+        if not part:
+            return torch.zeros((), device=tensors[0].device)
+        return torch.nn.utils.get_total_norm([t.float() for t in part],
+                                             2.0).square()
+
+    shards = sq([t for t, s in zip(tensors, sharded) if s])
+    dist.all_reduce(shards, group=group)
+    return (shards + sq([t for t, s in zip(tensors, sharded) if not s])).sqrt()

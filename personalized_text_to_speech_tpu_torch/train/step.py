@@ -63,25 +63,34 @@ The step's own draws (slice starts, posterior and duration noise) come from
 the ``torch.Generator`` it is given, or are injected as :class:`Samples`.
 
 Data parallelism: the step runs on this process's rows of a global batch
-across the group of :mod:`..parallel` (W ranks, equal batch sizes; W = 1
-without a group) and computes the global batch's losses and gradients, as
-the JAX package's GSPMD step does (not DDP's mean of per-rank means).  Each
-rank is weighted as one microbatch of the global batch, the weighting of
-``accum_steps``: the batch-mean terms (D loss, adversarial, feature and
-mel) × 1/W, the duration loss × Σx_mask_rank / Σx_mask_global and KL ×
-Σy_mask_rank / Σy_mask_global, the global sums from one all-reduce of
-[Σx, Σy] a step (in the accumulated step after phase 1, with its 1/k).
-Each update sums the gradients over the group
-(:func:`~..parallel.allreduce_grads`) before the norm and AdamW, so every
-rank takes the same update, and the metrics are summed, so every rank holds
-the global values.  The power iteration sees the same weights on every
-rank, so ``u``/``v`` stay equal without a broadcast.  With W = 1 every
-weight is exactly 1 (1/1, x/x) and every collective is a no-op or a sum
-over one rank, so there is one step: on one process it is the plain step
-bit for bit.  The collectives are explicit, not
+across the data axis of its mesh (:class:`~..parallel.Mesh`: W data ranks,
+equal batch sizes; W = 1 without a group) and computes the global batch's
+losses and gradients, as the JAX package's GSPMD step does (not DDP's mean
+of per-rank means).  Each data rank is weighted as one microbatch of the
+global batch, the weighting of ``accum_steps``: the batch-mean terms (D
+loss, adversarial, feature and mel) × 1/W, the duration loss ×
+Σx_mask_rank / Σx_mask_global and KL × Σy_mask_rank / Σy_mask_global, the
+global sums from one all-reduce of [Σx, Σy] over the data group a step (in
+the accumulated step after phase 1, with its 1/k).  Each update sums the
+gradients over the data group (:func:`~..parallel.allreduce_grads`) before
+the norm and AdamW, so every rank takes the same update, and the metrics
+are summed over it, so every rank holds the global values.  The power
+iteration sees the same weights on every rank, so ``u``/``v`` stay equal
+without a broadcast.  With W = 1 every weight is exactly 1 (1/1, x/x) and
+every collective is skipped, so there is one step: on one process it is
+the plain step bit for bit.  The collectives are explicit, not
 ``DistributedDataParallel``: D runs twice a step (the second time frozen),
 the accumulated step runs 2k backwards before one update, and remat
 re-enters the G forward, which DDP's hooks do not expect.
+
+Tensor parallelism (a mesh ``model`` axis above 1): the modules hold the
+slices of :func:`~..parallel.tp.shard_module`, whose layers gather their
+outputs, so the ranks of a model group compute the same losses on the same
+rows (the caller gives them the same rows and draws).  Each update then
+sums the gradients over the data group, gives the model group its model
+index 0's gradient of each replicated parameter
+(:func:`~..parallel.tp.sync_replicated_grads`), takes the norm with the
+slices' squares summed over the model group, and AdamW updates the slices.
 """
 
 from __future__ import annotations
@@ -99,6 +108,7 @@ from torch.utils.checkpoint import (
 
 from personalized_text_to_speech_tpu_torch import parallel
 from personalized_text_to_speech_tpu_torch.models.layers import power_iteration
+from personalized_text_to_speech_tpu_torch.parallel import tp
 from personalized_text_to_speech_tpu_torch.ops.masking import slice_segments
 from personalized_text_to_speech_tpu_torch.ops.spectrogram import (
     MelConfig,
@@ -196,7 +206,8 @@ def _assign(dst: List[torch.Tensor], src: List[torch.Tensor]) -> None:
 
 
 def make_train_step(hps, debug_grads: bool = False, accum_steps: int = 1,
-                    remat: str = "none"):
+                    remat: str = "none",
+                    mesh: Optional[parallel.Mesh] = None):
     """Build ``step(g_state, d_state, batch, generator=None, samples=None)
     → metrics``, which updates both states in place.
 
@@ -208,8 +219,9 @@ def make_train_step(hps, debug_grads: bool = False, accum_steps: int = 1,
     (the microbatches' joined along the batch); with ``accum_steps > 1`` also
     phase 1's under ``_out_d``.  ``accum_steps`` and ``remat``: the
     module docstring; the batch size must be divisible by ``accum_steps``.
-    The step takes the group of :mod:`..parallel` that exists when it is
-    built (none: one process), and ``batch`` is this rank's rows.
+    The step runs on ``mesh`` (default: the data mesh of the group of
+    :mod:`..parallel` that exists when it is built; none: one process),
+    and ``batch`` is this rank's rows.
     """
     k = int(accum_steps)
     if k < 1:
@@ -226,10 +238,15 @@ def make_train_step(hps, debug_grads: bool = False, accum_steps: int = 1,
     inter_ch = hps.model.inter_channels
     use_sdp = bool(hps.model.get("use_sdp", True))
     bf16 = uses_bf16(hps)
-    world = parallel.world_size()
+    if mesh is None:
+        mesh = parallel.create_mesh(None)
     # the weight of a microbatch's batch-mean terms in the global batch (1 in
-    # the fused step on one process: the products are then exact)
-    inv_k = 1.0 / (k * world)
+    # the fused step on one data rank: the products are then exact)
+    inv_k = 1.0 / (k * mesh.data)
+
+    def data_sum_(tensors):
+        if mesh.data > 1:
+            parallel.allreduce_(tensors, mesh.data_group)
 
     def autocast(device):
         return torch.autocast(device_type=device.type, dtype=torch.bfloat16,
@@ -295,15 +312,21 @@ def make_train_step(hps, debug_grads: bool = False, accum_steps: int = 1,
         """[Σx_mask, Σy_mask] of the global batch (one all-reduce)."""
         sums = torch.stack([x_sum, y_sum])
         with record_function("train/normaliser_allreduce"):
-            parallel.allreduce_([sums])
+            data_sum_([sums])
         return sums[0], sums[1]
 
     def update(state: TrainState, name: str):
         with record_function(f"train/{name}_allreduce"):
-            parallel.allreduce_grads(state.module)
+            if mesh.data > 1:
+                parallel.allreduce_grads(state.module, mesh.data_group)
+            tp.sync_replicated_grads(state.module, mesh)
         with record_function(f"train/{name}_update"):
             grads = {n: p.grad for n, p in state.module.named_parameters()}
-            norm = global_norm([v for v in grads.values() if v is not None])
+            present = [n for n, v in grads.items() if v is not None]
+            sharded = tp.sharded_names(state.module)
+            norm = global_norm([grads[n] for n in present],
+                               sharded=[n in sharded for n in present],
+                               group=mesh.model_group)
             state.apply_gradients()
         return grads, norm
 
@@ -324,7 +347,7 @@ def make_train_step(hps, debug_grads: bool = False, accum_steps: int = 1,
         names = [n for n in metrics if n.startswith("loss/")]
         flat = torch.stack([metrics[n].float() for n in names])
         with record_function("train/metrics_allreduce"):
-            parallel.allreduce_([flat])
+            data_sum_([flat])
         metrics.update(zip(names, flat.unbind()))
         return metrics
 

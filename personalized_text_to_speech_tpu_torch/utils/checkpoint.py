@@ -11,6 +11,13 @@ import and export live in :mod:`.torch_compat`.
 
 Files: ``<dir>/step_<00000000>.pt``, written to a temporary name and renamed,
 so a run killed mid-write leaves the previous checkpoint whole.
+
+Under tensor parallelism (:mod:`..parallel.tp`) a checkpoint holds the full
+parameters and AdamW moments (:meth:`~..train.state.TrainState.state_dict`
+gathers them over the model group, so every rank calls
+:func:`save_train_state` and one writes), and a restore keeps each rank's
+slices: the file is the same whatever the tp size, and a run resumes at
+another.
 """
 
 from __future__ import annotations
@@ -38,14 +45,19 @@ def _path(directory: str, step: int) -> str:
 
 
 def save_train_state(directory: str, step: int, g_state: TrainState,
-                     d_state: TrainState, preserved: int = 4) -> str:
-    """Write the checkpoint of ``step``; delete all but the newest
-    ``preserved``.  Returns its path."""
+                     d_state: TrainState, preserved: int = 4,
+                     write: bool = True) -> Optional[str]:
+    """Write the checkpoint of ``step`` (the full state) when ``write``;
+    delete all but the newest ``preserved``.  Returns its path, or
+    ``None`` on a rank that only took part in the gathering."""
+    payload = {"step": step, "g": g_state.state_dict(),
+               "d": d_state.state_dict()}
+    if not write:
+        return None
     os.makedirs(directory, exist_ok=True)
     path = _path(directory, step)
     tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save({"step": step, "g": g_state.state_dict(),
-                "d": d_state.state_dict()}, tmp)
+    torch.save(payload, tmp)
     os.replace(tmp, path)
     for old in _steps(directory)[:-max(int(preserved), 1)]:
         os.remove(_path(directory, old))
@@ -59,8 +71,9 @@ def latest_step(directory: str) -> Optional[int]:
 
 def restore_train_state(directory: str, g_state: TrainState,
                         d_state: TrainState) -> Optional[int]:
-    """Load the newest checkpoint into the two states in place; returns its
-    step label, or None where there is none."""
+    """Load the newest checkpoint into the two states in place (this rank's
+    slices of a sharded state); returns its step label, or None where there
+    is none."""
     step = latest_step(directory)
     if step is None:
         return None

@@ -28,8 +28,10 @@ step test asks for them, and the JAX step compiles meanwhile.
 * The CLI under ``torch.distributed.run`` with 2 ranks on synthetic wavs:
   both ranks take ``len(batcher)`` steps, only rank 0 writes the run's
   files, and ``--cont`` resumes both.
-* A ``model`` mesh axis above 1 raises; ranks whose gradients differ in
-  their ``None`` pattern raise at once instead of waiting in a collective.
+* A mesh other than the world size raises; ``tpu.sp`` with a ``model``
+  axis above 1 raises (ROADMAP.md, Queue 1, item 9); ranks whose gradients
+  differ in their ``None`` pattern raise at once instead of waiting in a
+  collective.
 * Two run directories of one name in a process keep their own
   ``train.log`` (the logger was keyed by the basename, so a ``Trainer`` in
   a second ``run/`` wrote into the first's log).
@@ -106,20 +108,41 @@ CLI_LIMIT_S = 180
 def test_no_group_is_rank_0_of_1():
     assert (parallel.rank(), parallel.world_size(), parallel.is_primary()) == \
         (0, 1, True)
-    assert parallel.create_mesh({"data": -1}) == 1
+    mesh = parallel.create_mesh({"data": -1})
+    assert (mesh.data, mesh.model, mesh.data_index, mesh.model_index) == \
+        (1, 1, 0, 0)
     assert parallel.create_mesh(None) == parallel.create_mesh({"data": 1})
     with pytest.raises(ValueError, match="world size"):
         parallel.create_mesh({"data": 2})
 
 
+@pytest.mark.parametrize("axes,world", [
+    ({"data": 2}, 1), ({"data": 1, "model": 2}, 1),
+    ({"data": -1, "model": 2}, 1), ({"data": 2, "model": 2}, 2),
+    ({"data": -1, "model": 3}, 4)])
+def test_mesh_other_than_the_world_raises(axes, world):
+    """data × model must be the world size: one process per device."""
+    with pytest.raises(ValueError, match="world size"):
+        parallel.mesh_shape(axes, world)
+
+
+@pytest.mark.parametrize("axes,world,shape", [
+    ({"data": -1, "model": 2}, 2, (1, 2)), ({"data": -1, "model": 2}, 4, (2, 2)),
+    ({"data": 2, "model": -1}, 8, (2, 4)), ({"model": 4}, 4, (1, 4)),
+    (None, 3, (3, 1))])
+def test_mesh_fills_the_world(axes, world, shape):
+    assert parallel.mesh_shape(axes, world) == shape
+
+
 @pytest.mark.parametrize("axes", [{"data": -1, "model": 2},
                                   {"data": 1, "model": 2}])
-def test_model_axis_raises(axes, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1"):
-        parallel.create_mesh(axes)
+def test_sp_with_model_axis_raises(axes, tmp_path):
+    """Sequence parallelism over the model axis is the next slice."""
     hps = tiny_model_config()
     hps.tpu.mesh = axes
-    with pytest.raises(NotImplementedError, match="parallel/tp.py"):
+    hps.tpu.sp = True
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md, Queue 1, item 9"):
         Trainer(hps, str(tmp_path / "run"), device="cpu")
 
 

@@ -1,5 +1,6 @@
 """The train step on the card in a world-size-1 NCCL group against the same
-step with no group, bit for bit.
+step with no group, bit for bit; and two gloo ranks on the card with a model
+axis of 2 against one process.
 
 Every test here is marked ``cuda`` and skips where there is no CUDA device.
 The file imports nothing of JAX:
@@ -71,3 +72,24 @@ def test_world_one_nccl_step_is_the_plain_step(nccl_group, spectral, k):
     forwards = 1 if k == 1 else 2 * k
     assert dp["mas_calls"] == dp["mas_launches"] == forwards
     assert dp["mas_plain_equal"] is True
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_model_2_match_one_process():
+    """Two gloo ranks on the card, data 1 × model 2, one tiny fused step
+    against one process with the bounds of ``dryrun.compare_tp``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the MAS kernel has no CPU mode")
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        job = dryrun.synthetic_job(full_width=False, nproc=1, per_rank=4)
+        report = dryrun.check_parallel(job, 2, "cuda", budget_s=240,
+                                       model=2)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+    assert report["mesh"] == (1, 2) and report["mas_launches"] == [1, 1]
+    assert report["sharded_g"] > 0.25
